@@ -1,11 +1,13 @@
 """lws_torch: spectrogram phase recovery via Local Weighted Sums, in PyTorch.
 
 The PyTorch / CUDA port of lws_tpu, for NVIDIA Hopper. It exports what is
-ported so far: the batch and no-future schedules of the `LWS` processor
-(the library default `LWS(512, 128)`), the STFT / iSTFT / consistency
-functions, the host-side window and weight construction, and the plain
-PyTorch sweeps. The Gauss-Seidel sweep runs in a hand-written CUDA kernel
-(lws_torch/csrc/lws_sweeps.cu) for CUDA float32 data.
+ported so far: the `LWS` processor's no-future, online (RTISI-LA) and batch
+stages and its 3-stage `run_lws` (mode="music"), the free functions
+`extspec` / `batch_lws` / `nofuture_lws` / `online_lws`, the STFT / iSTFT /
+consistency functions, the host-side window and weight construction, and
+the plain PyTorch sweeps and online loop. For CUDA float32 data the
+Gauss-Seidel sweep and the online stage run in hand-written CUDA kernels
+(lws_torch/csrc/lws_sweeps.cu, lws_torch/csrc/lws_online.cu).
 
 Entry points run on CUDA unless the caller passes device="cpu". lws_torch
 imports neither jax nor lws_tpu.
@@ -14,7 +16,9 @@ from __future__ import annotations
 
 from .convert import stencil_from_numpy
 from .core.batch import lws_sweeps
+from .core.online import rtisi_la
 from .core.stencil import Stencil, make_stencil, merge, split
+from .functional import batch_lws, extspec, nofuture_lws, online_lws
 from .processor import LWS, lws
 from .stft import (
     get_consistency,
@@ -41,5 +45,6 @@ __all__ = [
     "get_thresholds", "overlap_factor", "create_weights", "build_stencil",
     "W_PRUNE_THRESHOLD", "stft", "istft", "get_consistency", "stft_ri",
     "istft_ri", "get_consistency_ri", "lws_sweeps", "Stencil", "make_stencil",
-    "split", "merge", "stencil_from_numpy",
+    "split", "merge", "stencil_from_numpy", "rtisi_la", "extspec", "batch_lws",
+    "nofuture_lws", "online_lws",
 ]

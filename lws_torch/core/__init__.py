@@ -10,6 +10,7 @@ from .stencil import (
     update_frame,
 )
 from .batch import lws_sweeps
+from .online import rtisi_la
 
 __all__ = [
     "Stencil",
@@ -22,4 +23,5 @@ __all__ = [
     "split",
     "merge",
     "lws_sweeps",
+    "rtisi_la",
 ]

@@ -40,37 +40,19 @@
 // 2Q-1 row window resident in shared memory are left to a later change.
 //
 // Built with -fmad=false so each product and sum rounds as in the plain
-// PyTorch version (lws_torch/core/stencil.py).
+// PyTorch version (lws_torch/core/stencil.py). read_bin and the epilogue
+// are shared with the online kernel (lws_common.cuh).
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "lws_common.cuh"
 
-constexpr int kMaxQ = 16;
-constexpr int kMaxThreads = 1024;
-constexpr int kSmemLimit = 232448;  // per-block opt-in limit on sm_90
+namespace {
 
 template <bool kSmemWeights>
 __device__ __forceinline__ float load_w(const float* w, int idx) {
   if (kSmemWeights) return w[idx];
   return __ldg(w + idx);
-}
-
-// One frequency-margin read of row (rr, ri): conjugate reflection outside
-// [0, F-1].
-__device__ __forceinline__ void read_bin(const float* rr, const float* ri,
-                                         int j, int F, float& br, float& bi) {
-  if (j < 0) {
-    br = rr[-j];
-    bi = -ri[-j];
-  } else if (j > F - 1) {
-    const int jj = 2 * (F - 1) - j;
-    br = rr[jj];
-    bi = -ri[jj];
-  } else {
-    br = rr[j];
-    bi = ri[j];
-  }
 }
 
 template <bool kSmemWeights>
@@ -142,13 +124,10 @@ lws_sweeps_kernel(float* xr, float* xi,  // state: written, so not read-only
         if (n_pass == 0) {
           // no centre taps (the no-future stencil): no other thread reads
           // the centre row during this frame, so write it at once
-          const float a = __ldg(amp_m + n);
-          const float a2 = tr * tr + ti * ti;
-          const float scale = a * rsqrtf(a2 > 0.f ? a2 : 1.f);
-          if (a > th && a2 > 0.f) {
-            cen_r[n] = tr * scale;
-            cen_i[n] = ti * scale;
-          }
+          float nr = cen_r[n], ni = cen_i[n];
+          phase_update(tr, ti, __ldg(amp_m + n), th, nr, ni);
+          cen_r[n] = nr;
+          cen_i[n] = ni;
         } else {
           s_tr[n] = tr;
           s_ti[n] = ti;
@@ -182,15 +161,7 @@ lws_sweeps_kernel(float* xr, float* xi,  // state: written, so not read-only
               cr = cr + (wr * br - wi * bi);
               ci = ci + (wr * bi + wi * br);
             }
-            const float fr = s_tr[n] + cr;
-            const float fi = s_ti[n] + ci;
-            const float a = __ldg(amp_m + n);
-            const float a2 = fr * fr + fi * fi;
-            const float scale = a * rsqrtf(a2 > 0.f ? a2 : 1.f);
-            if (a > th && a2 > 0.f) {
-              nr = fr * scale;
-              ni = fi * scale;
-            }
+            phase_update(s_tr[n] + cr, s_ti[n] + ci, __ldg(amp_m + n), th, nr, ni);
           }
           dst_r[n] = nr;
           dst_i[n] = ni;
@@ -223,7 +194,7 @@ int lws_sweeps_launch(void* xr, void* xi, const void* amp, const void* wr,
     return (int)cudaErrorInvalidValue;
   }
   if (iters == 0) return (int)cudaSuccess;
-  const int threads = F >= kMaxThreads ? kMaxThreads : ((F + 31) / 32) * 32;
+  const int threads = threads_for(F);
   const bool stage = smem_bytes(F, Q, L, true) <= kSmemLimit;
   const int bytes = smem_bytes(F, Q, L, stage);
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;

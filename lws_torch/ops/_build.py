@@ -2,14 +2,17 @@
 
 Each source is compiled by `nvcc` alone into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds), cached in
-lws_torch/build/ under a hash of the source and the flags, and loaded with
-ctypes. A failed build raises; nothing falls back.
+lws_torch/build/ under a hash of the source, the csrc headers it includes
+and the flags, and loaded with ctypes. A failed build raises; nothing
+falls back.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,10 +40,27 @@ def _nvcc() -> str:
     raise RuntimeError("lws_torch: nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> list[Path]:
+    """csrc/<name>.cu and every file it includes with #include "...", at
+    any depth, in the order first met."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:  # grows while it is walked
+        for inc in _INCLUDE.findall(path.read_text()):
+            dep = (path.parent / inc).resolve()
+            if dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where the build of csrc/<name>.cu lands, keyed by source and flags."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the build of csrc/<name>.cu lands, keyed by the source, the
+    files it includes and the flags."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        key.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
@@ -58,6 +78,13 @@ def build(name: str) -> Path:
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def build_all(names) -> dict[str, Path]:
+    """Build several sources at once: one nvcc each, all started together."""
+    names = list(names)
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(build, names)))
 
 
 def load(name: str) -> ctypes.CDLL:

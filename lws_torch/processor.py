@@ -10,16 +10,17 @@ takes either a complex array (returns a host complex numpy array, as the
 reference does) or an (sr, si) pair (returns a pair on the device, for
 chaining). The batch and no-future stages go through the CUDA sweep kernel
 for CUDA float32 data and through the plain PyTorch sweeps on the CPU or
-with backend="torch" (lws_torch/ops/lws_sweeps.py).
+with backend="torch" (lws_torch/ops/lws_sweeps.py); the online (RTISI-LA)
+stage likewise through the CUDA online kernel or the plain frame-commit
+loop (lws_torch/ops/online.py). run_lws is no-future -> online -> batch.
 
 The processor runs on CUDA unless `device` names another device; without
 CUDA and without `device`, construction raises.
 
-Not in this slice (each raises NotImplementedError naming its ROADMAP
-item): online_iterations > 0 and mode="music" (A7), order != "gs" (A12),
-batch_lws(mesh=...) (A14), and spectrograms or signals past the one-shot
-STFT / sweep limits (A8). The TPU launch knobs (pallas_*) and auto_segment
-are not carried over.
+Not ported yet (each raises NotImplementedError naming its ROADMAP item):
+order != "gs" (A12), batch_lws(mesh=...) (A14), and spectrograms or
+signals past the one-shot STFT / sweep limits (A8). The TPU launch knobs
+(pallas_*) and auto_segment are not carried over.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from . import stft as _stft
 from ._device import real_dtype, resolve_device
 from .core.stencil import make_stencil, merge, split
 from .ops.lws_sweeps import tiled_lws_sweeps
+from .ops.online import packed_rtisi_la
 from .weights import build_stencil, create_weights
 from .windows import (
     build_asymmetric_windows,
@@ -51,10 +53,11 @@ class LWS:
     """Fast spectrogram phase recovery using Local Weighted Sums, PyTorch.
 
     Constructor signature mirrors lws_tpu.LWS (python/lws.pyx:379-383);
-    `mode='speech'` selects batch-only. `device` (default CUDA) and `dtype`
-    (float32 default, float64 supported on the plain path) place the
-    processor; `backend` is "auto" (kernel on CUDA float32, plain PyTorch
-    on the CPU) or "torch" (plain PyTorch anywhere).
+    `mode='speech'` selects batch-only, `mode='music'` adds one no-future
+    sweep and 10 online rounds before the batch sweeps. `device` (default
+    CUDA) and `dtype` (float32 default, float64 supported on the plain
+    path) place the processor; `backend` is "auto" (kernels on CUDA
+    float32, plain PyTorch on the CPU) or "torch" (plain PyTorch anywhere).
     """
 
     def __init__(
@@ -160,10 +163,6 @@ class LWS:
         elif mode == "music":
             nofuture_iterations = 1
             online_iterations = 10
-        if online_iterations:
-            raise NotImplementedError(
-                "lws_torch: the online (RTISI-LA) stage is not ported yet "
-                "(ROADMAP A7); use online_iterations=0 / mode='speech'")
 
         self.batch_iterations = batch_iterations
         self.batch_alpha, self.batch_beta, self.batch_gamma = batch_alpha, batch_beta, batch_gamma
@@ -179,13 +178,18 @@ class LWS:
         self.W_ai = create_weights(self.win_ai, self.swin, self.fshift, self.L, use_simplifications)
         self.W_af = create_weights(self.win_af, self.swin, self.fshift, self.L, use_simplifications)
 
-        # stencils on the device for the two stages of this slice
+        # stencils on the device for every visibility the pipeline needs
         nreal = self.fftsize // 2 + 1
         Q = self._Qi
-        self._st_batch = make_stencil(build_stencil(self.W, nreal), Q, self.L,
-                                      v=Q - 1, device=self.device, dtype=self.rdtype)
-        self._st_nofuture = make_stencil(build_stencil(self.W_ai, nreal), Q, self.L,
-                                         v=-1, device=self.device, dtype=self.rdtype)
+        wst = build_stencil(self.W, nreal)
+
+        def stencil(w, v):
+            return make_stencil(w, Q, self.L, v=v, device=self.device, dtype=self.rdtype)
+
+        self._st_batch = stencil(wst, Q - 1)
+        self._st_nofuture = stencil(build_stencil(self.W_ai, nreal), -1)
+        self._st_af = stencil(build_stencil(self.W_af, nreal), 0)
+        self._st_la = [stencil(wst, min(d, Q - 1)) for d in range(1, self.look_ahead + 1)]
 
     # ---------------- analysis / synthesis ----------------
 
@@ -261,6 +265,22 @@ class LWS:
             pair = self._sweeps(pair, thr, self._st_nofuture, 1, "jacobi")
         return self._ret(pair, was_pair)
 
+    def online_lws(self, S, iterations=None, thresholds=None):
+        """Online (TF-RTISI-LA) sliding-commit pass, look-ahead
+        `look_ahead`, with the processor's inner_passes / inner_scheme."""
+        if iterations is None:
+            iterations = self.online_iterations
+        thr = self._thr(iterations, self.online_alpha, self.online_beta,
+                        self.online_gamma, thresholds)
+        was_pair = self._is_pair(S)
+        pair = self._as_pair(S)
+        if thr.shape[0]:
+            pair = packed_rtisi_la(*pair, st_la=self._st_la, st_ai=self._st_nofuture,
+                                   st_af=self._st_af, thresholds=thr,
+                                   inner_passes=self.inner_passes,
+                                   inner_scheme=self.inner_scheme, backend=self.backend)
+        return self._ret(pair, was_pair)
+
     def batch_lws(self, S, iterations=None, thresholds=None, mesh=None):
         """Full batch LWS sweeps (the library default's main path)."""
         if mesh is not None:
@@ -278,10 +298,12 @@ class LWS:
         return self._ret(pair, was_pair)
 
     def run_lws(self, S):
-        """The pipeline of this slice: no-future -> batch
-        (python/lws.pyx:495-499 with online_iterations=0)."""
+        """The 3-stage pipeline: no-future -> online -> batch
+        (python/lws.pyx:495-499); the pair stays on the device between
+        stages."""
         was_pair = self._is_pair(S)
         pair = self.nofuture_lws(self._as_pair(S))
+        pair = self.online_lws(pair)
         pair = self.batch_lws(pair)
         return self._ret(pair, was_pair)
 

@@ -1,0 +1,232 @@
+#!/usr/bin/env python3
+"""Run the port's CUDA kernels on the CPU, to rehearse them before a card run.
+
+    python port_tools/cuda_on_cpu.py [--build-dir DIR]
+
+Each lws_torch/csrc/*.cu is compiled by g++ (C++20) against a small shim of
+the CUDA runtime: a block runs as one std::thread per CUDA thread,
+__syncthreads() is a std::barrier, shared memory is a per-block buffer
+filled with NaNs (so a read before a write shows), __ldg is a plain load,
+rsqrtf is 1/sqrt and <<<...>>> launches run the blocks one after another.
+The kernel's own wrappers (lws_torch.ops.lws_sweeps / lws_torch.ops.online)
+then launch it on CPU tensors, and the results are held against the plain
+versions in float32 at small shapes. Agreement shows the kernel's indexing,
+barriers and host arguments compute what the plain version computes; only
+the card shows that nvcc builds it and that it is fast (chip_smoke.py).
+A barrier that not every thread reaches hangs: run under `timeout`.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+import tempfile
+import types
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import lws_torch  # noqa: E402
+from lws_torch.ops import _build  # noqa: E402
+from lws_torch.ops import lws_sweeps as sweeps_mod  # noqa: E402
+from lws_torch.ops import online as online_mod  # noqa: E402
+
+SHIM = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(x)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local dim3 threadIdx, blockIdx;
+inline dim3 blockDim, gridDim;
+inline float* cpu_smem = nullptr;
+inline std::barrier<>* cpu_bar = nullptr;
+
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t e) { return e ? "invalid value" : "no error"; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrtf(double x) { return 1.0 / std::sqrt(x); }
+inline void __syncthreads() { cpu_bar->arrive_and_wait(); }
+
+template <class K, class... A>
+void cpu_launch(K kernel, dim3 grid, dim3 block, size_t smem_bytes, cudaStream_t, A... args) {
+  gridDim = grid;
+  blockDim = block;
+  std::vector<float> smem(smem_bytes / sizeof(float) + 1);
+  for (unsigned b = 0; b < grid.x; ++b) {
+    std::fill(smem.begin(), smem.end(), NAN);
+    cpu_smem = smem.data();
+    std::barrier<> bar(block.x);
+    cpu_bar = &bar;
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t) {
+      threads.emplace_back([=] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(b);
+        kernel(args...);
+      });
+    }
+    for (auto& th : threads) th.join();
+  }
+}
+"""
+
+LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.DOTALL)
+
+
+def cpu_source(text: str, real: str) -> str:
+    """The .cu / .cuh text rewritten for g++: every float a `real`, shared
+    memory from the shim's block buffer, <<<grid, block, smem, stream>>> as
+    cpu_launch(...)."""
+    text = re.sub(r"\bfloat\b", real, text)
+    text = text.replace(f"extern __shared__ {real} smem[];",
+                        f"{real}* smem = reinterpret_cast<{real}*>(cpu_smem);")
+    return LAUNCH.sub(lambda m: f"cpu_launch({m.group(1)}, {m.group(2)}, {m.group(3)});",
+                      text)
+
+
+def build_cpu(name: str, out_dir: Path, real: str = "float") -> ctypes.CDLL:
+    """g++ build of csrc/<name>.cu; real="double" builds it with every float
+    a double, to check its schedule without float32 rounding."""
+    src_dir = out_dir / real
+    shim_dir = out_dir / "shim"
+    for d in (src_dir, shim_dir):
+        d.mkdir(parents=True, exist_ok=True)
+    (shim_dir / "cuda_runtime.h").write_text(SHIM)
+    for header in _build.CSRC.glob("*.cuh"):
+        (src_dir / header.name).write_text(cpu_source(header.read_text(), real))
+    src = src_dir / f"{name}.cpp"
+    src.write_text(cpu_source((_build.CSRC / f"{name}.cu").read_text(), real))
+    lib = src_dir / f"{name}.so"
+    cmd = ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-ffp-contract=off",
+           f"-I{shim_dir}", "-o", str(lib), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"g++ failed for {name}:\n{proc.stderr}")
+    return ctypes.CDLL(str(lib))
+
+
+def online_float64(lib, sr, si, st_la, st_ai, st_af, thresholds, passes, color_k, rounds):
+    """The online kernel built in double, launched on float64 tensors with
+    the wrapper's own weight sets and thresholds."""
+    B, T, F = sr.shape
+    amp = torch.sqrt(sr * sr + si * si)
+    thr = (thresholds[None, :] * amp.mean(dim=(-2, -1))[:, None]).contiguous()
+    wr, wi, taps, counts = online_mod.online_weight_sets(st_la, st_ai, st_af)
+    taps, counts = torch.as_tensor(taps), torch.as_tensor(counts)
+    out_r, out_i = torch.empty_like(sr), torch.empty_like(si)
+    ptrs = [t.data_ptr() for t in (sr, si, amp, out_r, out_i, wr, wi, taps, counts, thr)]
+    lib.lws_online_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    err = lib.lws_online_launch(*ptrs, B, T, F, st_af.Q, st_af.L, len(st_la),
+                                thresholds.shape[0], passes, color_k, rounds, None)
+    assert err == 0, err
+    return out_r, out_i
+
+
+def random_phase(proc, frames, rng, B=2):
+    t = np.arange(16000) / 16000.0
+    x = np.stack([0.5 * np.sin(2 * np.pi * (200 + 90 * i) * t)
+                  + 0.2 * np.sin(2 * np.pi * (300 + 3000 * t) * t)
+                  + 0.05 * rng.standard_normal(t.size) for i in range(B)])
+    A = np.abs(proc.stft(x))[:, :frames]
+    S = A * np.exp(2j * np.pi * rng.random(A.shape))
+    return (A, torch.tensor(S.real, dtype=torch.float32),
+            torch.tensor(S.imag, dtype=torch.float32))
+
+
+def report(what, k, p, A):
+    d = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
+    print(f"{what}: max|cpu-built kernel - plain| / max amp {d / A.max():.3e}", flush=True)
+    return d / A.max()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--build-dir", default=None,
+                    help="where the g++ builds go (default: a temporary directory)")
+    args = ap.parse_args()
+    torch.set_num_threads(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(args.build_dir or tmp)
+        libs = {n: build_cpu(n, out) for n in ("lws_sweeps", "lws_online")}
+        _build.load = libs.__getitem__  # the wrappers' _library() loads these
+        torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
+        rng = np.random.default_rng(0)
+        worst = 0.0
+        for fsize, fshift, la, iters in ((512, 128, 3, 2), (256, 128, 3, 2),
+                                         (512 + 64, 128, 2, 2), (1024, 256, 3, 1),
+                                         (512, 128, 0, 1)):
+            proc = lws_torch.LWS(fsize, fshift, look_ahead=la, device="cpu")
+            A, sr, si = random_phase(proc, 20, rng)
+            thr = torch.tensor(lws_torch.get_thresholds(iters, 1, 0.1, 1), dtype=torch.float32)
+            on = (proc._st_la, proc._st_nofuture, proc._st_af, thr)
+            for ip in sorted({proc.inner_passes, 2}):
+                k = online_mod._launch(sr, si, *on, ip, proc.inner_scheme)
+                p = online_mod.packed_rtisi_la(sr, si, *on, ip, proc.inner_scheme,
+                                               backend="torch")
+                worst = max(worst, report(
+                    f"online LWS({fsize}, {fshift}) LA={la} {iters} rounds "
+                    f"{proc.inner_scheme} passes={ip} {tuple(sr.shape)}", k, p, A))
+            dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-2:],
+                                 dtype=torch.float32)
+            for st, ip, scheme, th in ((proc._st_batch, proc.batch_inner_passes,
+                                        proc.inner_scheme, dense),
+                                       (proc._st_nofuture, 1, "jacobi", thr[:1])):
+                k = sweeps_mod._launch(sr, si, st, th, ip, scheme, None, None)
+                p = sweeps_mod.tiled_lws_sweeps(sr, si, st, th, ip, scheme, backend="torch")
+                worst = max(worst, report(
+                    f"sweeps LWS({fsize}, {fshift}) v={'batch' if st is proc._st_batch else -1} "
+                    f"{scheme} passes={ip}", k, p, A))
+        print(f"worst float32 {worst:.3e}")
+
+        # the online kernel's schedule in double: agreement to float64 rounding
+        lib64 = build_cpu("lws_online", out, "double")
+        worst64 = 0.0
+        for fsize, fshift, la in ((512, 128, 3), (256, 128, 3), (512 + 64, 128, 2)):
+            proc = lws_torch.LWS(fsize, fshift, look_ahead=la, device="cpu",
+                                 dtype=torch.float64)
+            A, sr, si = random_phase(proc, 20, rng)
+            sr, si = sr.double(), si.double()
+            thr = torch.tensor(lws_torch.get_thresholds(2, 1, 0.1, 1))
+            on = (proc._st_la, proc._st_nofuture, proc._st_af, thr)
+            colors = proc.inner_scheme != "jacobi"
+            for ip in (1, 2):
+                k = online_float64(lib64, sr, si, *on, 1 if colors else ip,
+                                   2 if colors else 0, 3 if colors else 1)
+                p = online_mod.packed_rtisi_la(sr, si, *on, ip, proc.inner_scheme)
+                worst64 = max(worst64, report(
+                    f"float64 online LWS({fsize}, {fshift}) LA={la} {proc.inner_scheme} "
+                    f"passes={ip}", k, p, A))
+        print(f"worst float64 {worst64:.3e}")
+        return 0 if worst < 2e-3 and worst64 < 1e-9 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,4 +1,5 @@
-"""The CUDA sweep kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card (the sweep kernel, the online kernel),
+against their plain PyTorch versions.
 
 Marked `cuda`: each test skips without a CUDA card. This file imports
 neither jax nor lws_tpu, so it also runs where jax is not installed:
@@ -14,6 +15,7 @@ import torch
 
 import lws_torch
 from lws_torch.ops import lws_sweeps as sweeps_mod
+from lws_torch.ops import online as online_mod
 
 # max |kernel - plain| / max amp from a random-phase start on bench.py's
 # mixture class (chip_smoke.py's TOL_CASE: the two sum their taps in
@@ -107,3 +109,83 @@ def test_processor_on_cuda_goes_through_kernel(cuda_device):
     with pytest.raises(TypeError, match="float32"):
         lws_torch.LWS(512, 128, device=cuda_device, dtype=torch.float64).batch_lws(
             np.abs(X), iterations=1)
+
+
+@pytest.mark.cuda
+def test_online_kernel_matches_plain_sparse_golden(cuda_device):
+    """The golden sparse online inputs (look_ahead=2), every frame, at
+    chip_smoke.py's TOL_SPARSE: on q4 the plain float32 version moves
+    1.3e-3 x max amp under a 1e-7 relative input perturbation, on q2 3.8e-7
+    (port_tools/online_vs_reference.py, section sparse32)."""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for name, tol in (("q4", 5e-3), ("q2", 1e-5)):
+        with np.load(os.path.join(root, "tests", "golden", f"ref_{name}.npz")) as z:
+            g = {k: z[k] for k in z.files}
+        own = lws_torch.LWS(int(g["fsize"]), int(g["fshift"]), L=int(g["L"]), look_ahead=2,
+                            device=cuda_device)
+        S = g["online_sparse_in"]
+        sr = torch.tensor(S.real, dtype=torch.float32, device=cuda_device)
+        si = torch.tensor(S.imag, dtype=torch.float32, device=cuda_device)
+        thr = torch.tensor(g["online_sparse_thr"], dtype=torch.float32, device=cuda_device)
+        args = (sr, si, own._st_la, own._st_nofuture, own._st_af, thr, own.inner_passes,
+                own.inner_scheme)
+        before = online_mod.LAUNCHES
+        kr, ki = online_mod.packed_rtisi_la(*args)
+        assert online_mod.LAUNCHES == before + 1
+        pr, pi = online_mod.packed_rtisi_la(*args, backend="torch")
+        err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+        assert err <= tol * np.abs(S).max(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fsize,iters", [(512, 10), (256, 2)])
+def test_online_kernel_matches_plain_random_phase(cuda_device, fsize, iters):
+    """Q=4 jacobi at 10 rounds, Q=2 color2x3 at 2: the first frames bin by
+    bin, then the whole by consistency (rounding grows along the commit
+    chain)."""
+    own = lws_torch.LWS(fsize, 128, device=cuda_device)
+    A, sr, si = _random_phase(own, 100, cuda_device, seed=3)
+    thr = torch.tensor(lws_torch.get_thresholds(iters, 1, 0.1, 1), dtype=torch.float32,
+                       device=cuda_device)
+    args = (sr, si, own._st_la, own._st_nofuture, own._st_af, thr, own.inner_passes,
+            own.inner_scheme)
+    kr, ki = online_mod.packed_rtisi_la(*args)
+    pr, pi = online_mod.packed_rtisi_la(*args, backend="torch")
+    err = max(float((kr[:, :6] - pr[:, :6]).abs().max()),
+              float((ki[:, :6] - pi[:, :6]).abs().max()))
+    assert err <= TOL * A.max(), err
+    dc = (own.get_consistency((kr, ki)) - own.get_consistency((pr, pi))).abs().max()
+    assert float(dc) <= 0.1, float(dc)
+    np.testing.assert_allclose(torch.sqrt(kr * kr + ki * ki).cpu().numpy(), A,
+                               rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_music_run_lws_on_cuda_matches_plain(cuda_device):
+    """mode="music" run_lws through both kernels (K1 twice, K3 once)
+    against backend="torch", by consistency."""
+    own = lws_torch.LWS(512, 128, mode="music", device=cuda_device)
+    plain = lws_torch.LWS(512, 128, mode="music", device=cuda_device, backend="torch")
+    A, sr, si = _random_phase(own, 120, cuda_device, seed=4)
+    amp = torch.tensor(A, dtype=torch.float32, device=cuda_device)
+    pair = (amp, torch.zeros_like(amp))
+    before = (sweeps_mod.LAUNCHES, online_mod.LAUNCHES)
+    out = own.run_lws(pair)
+    assert (sweeps_mod.LAUNCHES, online_mod.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    ref = plain.run_lws(pair)
+    dc = (own.get_consistency(out) - plain.get_consistency(ref)).abs().max()
+    assert float(dc) <= 0.1, float(dc)
+    assert float(own.get_consistency(out).min()) > float(own.get_consistency(pair).max()) + 10
+
+
+@pytest.mark.cuda
+def test_online_kernel_rejects_what_it_does_not_take(cuda_device):
+    own = lws_torch.LWS(512, 128, device=cuda_device, dtype=torch.float64)
+    A = np.abs(np.random.default_rng(5).standard_normal((2, 30, 257)))
+    with pytest.raises(ValueError, match="backend='torch'"):
+        own.online_lws(A.astype(np.complex128), iterations=1)
+    wide = lws_torch.LWS(4096, 512, device=cuda_device)  # F=2049, Q=8
+    B = torch.ones((1, 20, 2049), device=cuda_device)
+    with pytest.raises(ValueError, match="backend='torch'"):
+        wide.online_lws((B, torch.zeros_like(B)), iterations=1)

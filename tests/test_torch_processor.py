@@ -1,5 +1,6 @@
-"""lws_torch.LWS (the batch / no-future slice) vs the reference goldens and
-lws_tpu.LWS, on the CPU in float64.
+"""lws_torch.LWS (the batch and no-future stages) vs the reference goldens
+and lws_tpu.LWS, on the CPU in float64 (the online stage and the music
+pipeline: tests/test_torch_online.py).
 
 batch_lws at 100 sweeps runs on q4, q2 and frac (one golden per in-frame
 scheme and weight kind: Q=4 ip3 jacobi, Q=2 color2x3, fractional Q), which
@@ -102,10 +103,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise_with_roadmap_item(golden_q4):
-    with pytest.raises(NotImplementedError, match="A7"):
-        lws_torch.LWS(512, 128, mode="music", device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        lws_torch.LWS(512, 128, online_iterations=3, device="cpu")
+    # the online stage (A7) is ported: these construct as in lws_tpu
+    for kw in ({"mode": "music"}, {"online_iterations": 3}):
+        t = lws_torch.LWS(512, 128, device="cpu", **kw)
+        j = lws_tpu.LWS(512, 128, **kw)
+        assert (t.nofuture_iterations, t.online_iterations) == \
+            (j.nofuture_iterations, j.online_iterations)
     with pytest.raises(NotImplementedError, match="A12"):
         lws_torch.LWS(512, 128, order="jacobi", device="cpu")
     p = _proc(golden_q4)
@@ -119,7 +122,8 @@ def test_unported_paths_raise_with_roadmap_item(golden_q4):
 
 
 def test_import_leaves_out_jax_and_lws_tpu():
-    code = ("import sys, lws_torch, lws_torch.ops, lws_torch.convert, chip_smoke; "
+    code = ("import sys, lws_torch, lws_torch.ops, lws_torch.convert, lws_torch.functional, "
+            "lws_torch.entry, lws_torch.core.online, lws_torch.ops.online, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lws_tpu')); print(bad); sys.exit(1 if bad else 0)")
     import os
