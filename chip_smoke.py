@@ -12,7 +12,9 @@ Phases, in order:
   3. each kernel against its plain version on the card, same float32
      inputs made from a numpy seed, at the paths' shapes: the sweep kernel
      (cases a-d at F=257 / 129, h at F=513, where its weights do not fit
-     shared memory) and the online kernel (cases e-g);
+     shared memory), the online kernel (cases e-g) and the chunked online
+     kernel (case i: chunked, against the online kernel bit for bit; case
+     j: against its plain version, with the running mean);
   4. the batch path at full width: LWS(512, 128) on 32 x 5 s utterances at
      16 kHz, stft -> batch_lws(|X|) (100 sweeps) -> get_consistency ->
      istft, with the launch counts of that one run, the kernel and plain
@@ -24,7 +26,17 @@ Phases, in order:
      run, the consistency after each stage, the floor set by lws_tpu's own
      result, the stage and kernel times, and agreement with the plain
      version;
-  6. the kernels line (JSON), then the result line (JSON) last.
+  6. the streaming path at full width: StreamingLWS(LWS(512, 128,
+     look_ahead=3, online_iterations=10)) on bench.py's streaming workload
+     (8 streams x 5 s at 16 kHz pushed in 0.5 s chunks through push_block,
+     block_frames=64, emit="device", running mean) then flush, with the
+     launch count of that one run, the output checks (every live frame
+     committed, magnitudes, audio length, consistency against lws_tpu's own
+     result and the plain chunk path, device emit against host emit), the
+     stream wall and the chunked kernel's share of it, and the latency
+     table of BENCHMARKS.md (host-synchronous pushes at block_frames 32 and
+     8, pipelined device emit at block_frames 1);
+  7. the kernels line (JSON), then the result line (JSON) last.
 
 Exits non-zero, before any result line, without CUDA, without the repo's
 lws_torch beside this file, or when any phase fails. Imports nothing of
@@ -82,6 +94,15 @@ TOL_ONLINE_DB = 0.1
 # utterances must reach it less MUSIC_MARGIN_DB.
 MUSIC_JAX_DB = 33.9263
 MUSIC_MARGIN_DB = 0.5
+# lws_tpu's own result on the streaming path: lws_tpu.StreamingLWS (its
+# per-frame "xla" backend) with LWS(512, 128, look_ahead=3,
+# online_iterations=10), float32, on the CPU, streams 0-1 of the streaming
+# inputs below pushed in 0.5 s chunks then flushed: mean consistency of the
+# committed spectrogram (port_tools/online_vs_reference.py, section stream;
+# the port's plain chunk path there: 23.3971 dB). The card's mean on the
+# same two streams must reach it less STREAM_MARGIN_DB.
+STREAM_JAX_DB = 23.3941
+STREAM_MARGIN_DB = 0.5
 
 # Sizes: the main path at full width (bench.py's batch workload), the
 # kernel-vs-plain cases at its frame count with fewer utterances.
@@ -90,6 +111,9 @@ MAIN_B, MAIN_SECONDS, SAMPLE_RATE, MAIN_SWEEPS = 32, 5.0, 16000, 100
 CASE_B = 4
 # The music path: bench.py's pipeline workload (bench.py:137-160).
 MUSIC_B, MUSIC_SECONDS, MUSIC_SEED = 32, 5.0, 1
+# The streaming path: bench.py's streaming workload (bench.py:235-354), 8
+# streams x 5 s pushed in 0.5 s chunks, one chunk launch per 64 frames.
+STREAM_B, STREAM_SECONDS, STREAM_SEED, STREAM_CHUNK, STREAM_BLOCK = 8, 5.0, 5, 8000, 64
 
 
 def make_batch(B, n, sr_hz, rng):
@@ -129,7 +153,7 @@ def card_lines(torch):
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
 
 
-KERNELS = ("lws_sweeps", "lws_online")
+KERNELS = ("lws_sweeps", "lws_online")  # sources; lws_online.cu holds K3 and K4
 
 
 def build_phase():
@@ -271,6 +295,80 @@ def online_cases(s, torch, lws_torch, online_mod):
     return worst
 
 
+def chunked(torch, online_mod, proc, sr, si, means, thr, backend="auto"):
+    """The chunked online stage (K4, or its plain version with
+    backend="torch") over (sr, si) (B, T, F), chunked at (17, 1, rest), then
+    one drain chunk of LA frames; returns the committed rows of the input's
+    frames (B, T, F)."""
+    B, T, F = sr.shape
+    LA = proc.look_ahead
+    args = (proc._st_la, proc._st_nofuture, proc._st_af, thr)
+    state = online_mod.online_chunk_init(proc._st_la, proc._st_af, sr[:, 0], si[:, 0])
+    z = torch.zeros((B, LA, F), dtype=sr.dtype, device=sr.device)
+    pieces = [(sr[:, a:b], si[:, a:b], means[:, a:b], None)
+              for a, b in ((0, 17), (17, 18), (18, T))] + [(z, z, means[:, :LA], 0)]
+    rows_r, rows_i = [], []
+    for r, i, m, n_live in pieces:
+        cr, ci, state = online_mod.online_chunk(
+            r.contiguous(), i.contiguous(), state, m.contiguous(), *args, n_live,
+            proc.inner_passes, proc.inner_scheme, backend)
+        rows_r.append(cr)
+        rows_i.append(ci)
+    return torch.cat(rows_r, dim=1)[:, LA:], torch.cat(rows_i, dim=1)[:, LA:]
+
+
+def chunk_cases(s, torch, lws_torch, online_mod):
+    """Phase 3, the chunked online kernel (K4) on the card, float32, on
+    (4, 628, 257) from seeded random phases, LWS(512, 128), look_ahead 3, 10
+    rounds. Returns the largest max |delta| of case j's first frames."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(3)
+    x = make_batch(CASE_B, int(MAIN_SECONDS * SAMPLE_RATE), SAMPLE_RATE, rng)
+    proc = lws_torch.LWS(512, 128, device=dev)
+    sr, si = proc.stft_ri(x)
+    amp = torch.sqrt(sr * sr + si * si)
+    ph = torch.as_tensor(rng.uniform(0, 2 * np.pi, tuple(amp.shape)),
+                         dtype=torch.float32, device=dev)
+    sr, si = (amp * torch.cos(ph)).contiguous(), (amp * torch.sin(ph)).contiguous()
+    amp = torch.sqrt(sr * sr + si * si)  # as the wrappers compute it
+    B, T, F = sr.shape
+    LA = proc.look_ahead
+    thr = torch.as_tensor(lws_torch.get_thresholds(10, 1, 0.1, 1), dtype=torch.float32,
+                          device=dev)
+    shape = f"{tuple(sr.shape)} LA={LA} 10 rounds {proc.inner_scheme}"
+
+    # i: with K3's fixed per-utterance mean, K4 chunked and drained is K3
+    k3 = online_mod.packed_rtisi_la(sr, si, proc._st_la, proc._st_nofuture, proc._st_af,
+                                    thr, proc.inner_passes, proc.inner_scheme)
+    fixed = amp.mean(dim=(-2, -1))[:, None].expand(B, T)
+    k4 = chunked(torch, online_mod, proc, sr, si, fixed, thr)
+    s.sync()
+    d = max(float((k4[0] - k3[0]).abs().max()), float((k4[1] - k3[1]).abs().max()))
+    s.check(d == 0.0, f"case i K4 chunked (17, 1, rest) + drain vs K3, fixed mean, {shape}: "
+            f"max|d| = {d:.3e} (must be 0: bit-equal)")
+
+    # j: the running mean of the stream, K4 against its plain version
+    means = torch.cumsum(amp.mean(dim=-1), dim=1) / torch.arange(
+        1, T + 1, dtype=torch.float32, device=dev)
+    kr, ki = chunked(torch, online_mod, proc, sr, si, means, thr)
+    pr, pi = chunked(torch, online_mod, proc, sr, si, means, thr, backend="torch")
+    s.sync()
+    early = slice(0, ONLINE_EARLY_FRAMES)
+    worst = max(float((kr[:, early] - pr[:, early]).abs().max()),
+                float((ki[:, early] - pi[:, early]).abs().max()))
+    rel = worst / float(amp.max())
+    s.check(np.isfinite(worst) and rel <= TOL_CASE,
+            f"case j K4 vs plain online_chunk, running mean, {shape}, first "
+            f"{ONLINE_EARLY_FRAMES} frames: max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g})")
+    dc = float((proc.get_consistency((kr, ki)) - proc.get_consistency((pr, pi))).abs().max())
+    s.check(dc <= TOL_ONLINE_DB, f"case j per-utterance consistency, K4 vs plain: max "
+            f"{dc:.4f} dB (tol {TOL_ONLINE_DB})")
+    mag_rel = float(((torch.sqrt(kr * kr + ki * ki) - amp).abs() / amp.clamp_min(1e-30)).max())
+    s.check(mag_rel <= TOL_MAGNITUDE,
+            f"case j magnitudes preserved: {mag_rel:.2e} (tol {TOL_MAGNITUDE:g})")
+    return worst
+
+
 def cuda_ms(torch, fn, reps):
     """Median CUDA-event time of fn() over reps, after one warm-up call."""
     fn()
@@ -305,13 +403,16 @@ def sweep_bound(st, passes, live, T, F, B):
             flops, nbytes, serial)
 
 
-def online_bound(proc, online_mod, T, F, B, iters):
+def online_bound(proc, online_mod, T, F, B, iters, frames=None, launches=None):
     """(bound_ms, bound_by, flops, bytes, row updates per CTA) of one online
     stage: 8 flops per live tap and bin (complex multiply-add), ~12 flops of
     epilogue per bin and pass (colors update a 1/k share of the bins per
-    pass), over the row updates the stage runs (frames before the start are
-    skipped); each input and output plane touched once, the weight sets
-    read once."""
+    pass), over the row updates the stage runs for T live frames (frames
+    before the start are skipped); each input and output plane touched
+    once, the weight sets read once. For K4 over a stream (launches given):
+    `frames` frames through the kernel (drains included; they update
+    nothing), each launch reading the weight sets and the state once and
+    writing the state once, and a threshold per frame and round."""
     sets = [proc._st_nofuture, proc._st_af, *proc._st_la]
     _, _, _, counts = online_mod.online_weight_sets(proc._st_la, proc._st_nofuture,
                                                     proc._st_af)
@@ -332,7 +433,13 @@ def online_bound(proc, online_mod, T, F, B, iters):
     updates = {0: T, 1: iters * T}
     updates.update({2 + d - 1: iters * (T - d) for d in range(1, LA + 1)})
     flops = float(B * F * sum(n * per_bin(s) for s, n in updates.items()))
-    nbytes = 4.0 * (5 * B * T * F + 2 * len(sets) * sets[0].Wr.numel() + B * iters)
+    weights = 2 * len(sets) * sets[0].Wr.numel()
+    if launches is None:
+        nbytes = 4.0 * (5 * B * T * F + weights + B * iters)
+    else:
+        state = 2 * B * (2 * (LA + proc._Qi) + LA + 1) * F  # read and written
+        nbytes = 4.0 * (5 * B * frames * F + B * frames * iters
+                        + launches * (weights + state))
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_S
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
             flops, nbytes, sum(updates.values()))
@@ -481,6 +588,207 @@ def music_path(s, torch, lws_torch, sweeps_mod, online_mod):
     return online_entry, music_sweeps
 
 
+class KernelTimer:
+    """CUDA events around each call of a wrapper, summed: installed on the
+    wrapper's module while a run is timed (StreamingLWS calls it there)."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.fn = getattr(module, name)
+        self.events = []
+
+    def __enter__(self):
+        def timed(*args, **kw):
+            a = self.torch.cuda.Event(enable_timing=True)
+            b = self.torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = self.fn(*args, **kw)
+            b.record()
+            self.events.append((a, b))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.events))
+
+
+def stream_path(s, torch, lws_torch, online_mod):
+    """Phase 6. Returns the kernels-line entry for the chunked online
+    kernel (K4)."""
+    from lws_torch.stft import frame_signal
+    dev = torch.device(DEVICE)
+    B, secs, sr_hz, chunk = STREAM_B, STREAM_SECONDS, SAMPLE_RATE, STREAM_CHUNK
+    x = make_batch(B, int(secs * sr_hz), sr_hz, np.random.default_rng(STREAM_SEED))
+    proc = lws_torch.LWS(512, 128, look_ahead=3, online_iterations=10, device=dev)
+    fsize, fshift, LA = proc.fsize, proc.fshift, proc.look_ahead
+
+    def stream(**kw):
+        kw = dict(dict(streams=B, block_frames=STREAM_BLOCK, emit="device"), **kw)
+        return lws_torch.StreamingLWS(proc, **kw)
+
+    def run(st, xs=x):
+        """push_block the 0.5 s chunks, flush, and collect the audio on the
+        host (inside a timed run: a caller needs the bytes)."""
+        st.reset()
+        outs = [st.push_block(xs[:, i:i + chunk]) for i in range(0, xs.shape[-1], chunk)]
+        outs.append(st.flush())
+        return np.concatenate([st.fetch(o) for o in outs], axis=-1)
+
+    # one run of the streaming path, through the user entry points, counted
+    st = stream(keep_frames=True)
+    online_mod.CHUNK_LAUNCHES = 0
+    y = run(st)
+    s.sync()
+    launches = online_mod.CHUNK_LAUNCHES
+    live = -(-x.shape[-1] // fshift)  # frames holding samples, all committed
+    print(f"streaming path: StreamingLWS(LWS(512, 128, look_ahead={LA}, "
+          f"online_iterations=10), streams={B}, block_frames={STREAM_BLOCK}, "
+          f"emit='device') on {B} x {secs:g} s pushed in {chunk}-sample chunks, then "
+          f"flush: {st._frames_seen} frames through the kernel ({live} live)")
+    s.check(launches >= 1 and launches == st._frames_seen // STREAM_BLOCK,
+            f"lws_online_chunk kernel launches in the streaming run: {launches} (one per "
+            f"{STREAM_BLOCK}-frame block of push_block and flush: "
+            f"{st._frames_seen // STREAM_BLOCK})")
+
+    com = np.stack(st.committed_frames, axis=1)  # (B, frames, F) complex64
+    s.check(com.shape[1] == live, f"committed frames per stream {com.shape[1]} (live {live})")
+    n_out = live * fshift + fsize
+    s.check(bool(np.isfinite(y).all()) and y.shape == (B, n_out),
+            f"finite audio {y.shape} (expected ({B}, {n_out}): a hop per committed frame "
+            f"plus the {fsize}-sample tail)")
+    xt = torch.as_tensor(x, device=dev)
+    frames = frame_signal(xt, fsize, fshift, live) * torch.as_tensor(
+        proc.awin, dtype=torch.float32, device=dev)
+    A = torch.fft.rfft(frames, n=proc.fftsize, dim=-1).abs()
+    com_t = torch.as_tensor(com, device=dev)
+    # per-bin relative error; the stream's rfft ran block by block, so bins
+    # under 1e-6 x max |STFT| are held to that floor instead of their own size
+    mag_rel = float(((com_t.abs() - A).abs() / A.clamp_min(1e-6 * float(A.max()))).max())
+    s.check(mag_rel <= TOL_MAGNITUDE,
+            f"magnitudes of the committed frames vs |STFT|: {mag_rel:.2e} (tol {TOL_MAGNITUDE:g})")
+    pair = (com_t.real.contiguous(), com_t.imag.contiguous())
+    c = proc.get_consistency(pair)
+    c01 = float(c[:2].mean())
+    c_in = float(proc.get_consistency((A, torch.zeros_like(A))).mean())
+    print(f"  consistency of the committed spectrogram: |STFT| alone {c_in:.3f} dB -> mean "
+          f"{float(c.mean()):.3f} dB over {B} (min {float(c.min()):.3f}, max "
+          f"{float(c.max()):.3f}); streams 0-1 {c01:.4f} dB")
+    s.check(c01 >= STREAM_JAX_DB - STREAM_MARGIN_DB,
+            f"streams 0-1 {c01:.4f} dB >= lws_tpu's {STREAM_JAX_DB} - {STREAM_MARGIN_DB} dB")
+
+    # device emit against host emit, with and without prefetch: same bits
+    y_host = run(stream(emit="host"))
+    y_nopf = run(stream(prefetch=False))
+    s.check(np.array_equal(y, y_host) and np.array_equal(y, y_nopf),
+            "emit='device' (prefetch on / off) and emit='host' give bit-identical audio")
+
+    # the stream wall: median of 7 runs after a warm-up run
+    st = stream()
+    run(st)
+    walls = []
+    for _ in range(7):
+        s.sync()
+        t0 = time.perf_counter()
+        run(st)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls))
+    with KernelTimer(torch, online_mod, "online_chunk") as kt:
+        s.sync()
+        t0 = time.perf_counter()
+        run(st)
+        s.sync()
+        timed_wall = time.perf_counter() - t0
+    ms = kt.ms()
+    print(f"  stream wall (median of 7): {1e3 * wall:.2f} ms -> {B * secs / wall:.1f} audio-s/s; "
+          f"walls {', '.join(f'{1e3 * w:.1f}' for w in sorted(walls))} ms; K4 (its wrapper, "
+          f"CUDA events, summed over the {len(kt.events)} calls of one run) {ms:.3f} ms = "
+          f"{100 * ms / (1e3 * timed_wall):.1f}% of that run's {1e3 * timed_wall:.2f} ms")
+
+    # the plain chunk path (backend="torch") on the same streams
+    sp = stream(backend="torch", keep_frames=True)
+    with KernelTimer(torch, online_mod, "online_chunk") as pt:
+        t0 = time.perf_counter()
+        y_plain = run(sp)
+        s.sync()
+        plain_wall = time.perf_counter() - t0
+    plain_ms = pt.ms()
+    com_p = torch.as_tensor(np.stack(sp.committed_frames, axis=1), device=dev)
+    c_p = proc.get_consistency((com_p.real.contiguous(), com_p.imag.contiguous()))
+    dcs = (c - c_p).abs()
+    print(f"  plain chunk path: stream wall {1e3 * plain_wall:.1f} ms, its online_chunk "
+          f"{plain_ms:.1f} ms; consistency mean {float(c_p.mean()):.3f} dB, |K4 - plain| per "
+          f"stream {', '.join(f'{float(v):.4f}' for v in dcs)} dB; audio shape "
+          f"{y_plain.shape}")
+    s.check(float(dcs[:2].max()) <= TOL_ONLINE_DB and y_plain.shape == y.shape,
+            f"K4 vs plain chunk path, streams 0-1: per-stream consistency max "
+            f"{float(dcs[:2].max()):.4f} dB (tol {TOL_ONLINE_DB})")
+
+    # latency table (BENCHMARKS.md): host-synchronous pushes at 32 and 8
+    # frames a block, and the pipelined block_frames=1 device-emit point
+    # K4's time per launch (CUDA events around its wrapper) rides along
+    lat = {}
+    for bf, n_push in ((32, 16), (8, 64)):
+        sl = stream(emit="host", block_frames=bf)
+        n = bf * fshift * 8  # warm-up: 8 blocks
+        sl.push_block(x[:, :n])
+        sl.stats.reset()
+        with KernelTimer(torch, online_mod, "online_chunk") as kt:
+            for i in range(n, min(n + bf * fshift * n_push, x.shape[-1]), bf * fshift):
+                sl.push_block(x[:, i:i + bf * fshift])
+        sm = sl.stats.summary()
+        lat[bf] = dict(mode="sync", **{f"p{q}_ms": 1e3 * sm[f"p{q}_s"] for q in (50, 95, 99)},
+                       pushes=sm["pushes"], k4_ms_per_launch=kt.ms() / len(kt.events))
+    sp1 = stream(block_frames=1)
+    hop, n_warm, n_push = fshift, 16, 128
+    outs = [sp1.push_block(x[:, i:i + hop]) for i in range(0, n_warm * hop, hop)]
+    sp1.fetch(outs[-1])
+    s.sync()
+    per, amorts, pos = [], [], n_warm * hop
+    with KernelTimer(torch, online_mod, "online_chunk") as kt:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            last = None
+            for _ in range(n_push):
+                t1 = time.perf_counter()
+                last = sp1.push_block(x[:, pos:pos + hop])
+                per.append(time.perf_counter() - t1)
+                pos = (pos + hop) % (x.shape[-1] - hop)
+            sp1.fetch(last)  # the drain: amortised time includes it
+            amorts.append((time.perf_counter() - t0) / n_push)
+    amort = float(np.median(amorts))
+    lat[1] = dict(mode="pipelined", **{f"p{q}_ms": 1e3 * float(np.percentile(per, q))
+                                       for q in (50, 95, 99)},
+                  pushes=len(per), k4_ms_per_launch=kt.ms() / len(kt.events),
+                  amortized_ms=1e3 * amort, rt_factor=(hop / sr_hz) / amort)
+    for bf, row in lat.items():
+        print(f"  latency block_frames={bf} ({bf * hop / sr_hz * 1e3:g} ms of audio per push, "
+              f"{row['mode']}, {row['pushes']} pushes): p50 {row['p50_ms']:.3f}, p95 "
+              f"{row['p95_ms']:.3f}, p99 {row['p99_ms']:.3f} ms; K4 {row['k4_ms_per_launch']:.3f} "
+              f"ms per launch"
+              + (f"; amortised {row['amortized_ms']:.3f} ms per {hop / sr_hz * 1e3:g} ms hop "
+                 f"(drain included) -> {row['rt_factor']:.2f} x real time"
+                 if bf == 1 else ""))
+
+    T_live = live
+    bound_ms, bound_by, flops, nbytes, updates = online_bound(
+        proc, online_mod, T_live, int(com.shape[-1]), B, 10,
+        frames=launches * STREAM_BLOCK, launches=launches)
+    print(f"  K4 bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B over "
+          f"{launches} launches); {updates} row updates per CTA -> "
+          f"{1e3 * ms / updates:.3f} us per row update")
+    return dict(name="lws_online_chunk", route="cuda", source="lws_torch/csrc/lws_online.cu",
+                replaces="lws_tpu/ops/pallas_packed.py:1180", launches=launches, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                shape=[B, launches * STREAM_BLOCK, int(com.shape[-1])], live_frames=T_live,
+                rounds=10, look_ahead=LA, row_updates=updates, stream_wall_ms=1e3 * wall,
+                audio_s_per_s=B * secs / wall, consistency_db=float(c.mean()), latency=lat)
+
+
 def main_path(s, torch, lws_torch, sweeps_mod):
     """Phase 4. Returns the kernels-line entry for lws_sweeps."""
     dev = torch.device(DEVICE)
@@ -585,8 +893,10 @@ def main():
     build_phase()
     worst = kernel_cases(s, torch, lws_torch, sweeps_mod)
     worst_online = online_cases(s, torch, lws_torch, online_mod)
+    worst_chunk = chunk_cases(s, torch, lws_torch, online_mod)
     entry = main_path(s, torch, lws_torch, sweeps_mod)
     online_entry, music_sweeps = music_path(s, torch, lws_torch, sweeps_mod, online_mod)
+    chunk_entry = stream_path(s, torch, lws_torch, online_mod)
     # launches: the music path's run (this slice's path); the batch path's
     # own count and the batch-stage timing at F=513 ride along
     entry["launches_batch_path"] = entry["launches"]
@@ -594,9 +904,11 @@ def main():
     entry["music"] = music_sweeps
     entry["max_abs_err"] = worst
     online_entry["max_abs_err"] = worst_online
-    for e in (entry, online_entry):
+    chunk_entry["max_abs_err"] = worst_chunk
+    kernels = [entry, online_entry, chunk_entry]
+    for e in kernels:
         e["checks"] = "pass" if not s.failures else "fail"
-    print(json.dumps({"kernels": [entry, online_entry]}))
+    print(json.dumps({"kernels": kernels}))
     if s.failures:
         print("chip_smoke: FAILED: " + "; ".join(s.failures), file=sys.stderr)
         return 1

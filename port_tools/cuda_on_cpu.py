@@ -10,7 +10,10 @@ filled with NaNs (so a read before a write shows), __ldg is a plain load,
 rsqrtf is 1/sqrt and <<<...>>> launches run the blocks one after another.
 The kernel's own wrappers (lws_torch.ops.lws_sweeps / lws_torch.ops.online)
 then launch it on CPU tensors, and the results are held against the plain
-versions in float32 at small shapes. Agreement shows the kernel's indexing,
+versions in float32 at small shapes; the online kernels are also built in
+double and held to the plain versions in float64, and the chunked one (K4),
+chunked at (7, 1, rest) plus a drain chunk, to the whole-stage one (K3) bit
+for bit. Agreement shows the kernel's indexing,
 barriers and host arguments compute what the plain version computes; only
 the card shows that nvcc builds it and that it is fast (chip_smoke.py).
 A barrier that not every thread reaches hangs: run under `timeout`.
@@ -150,6 +153,57 @@ def online_float64(lib, sr, si, st_la, st_ai, st_af, thresholds, passes, color_k
     return out_r, out_i
 
 
+def chunk_float64(lib, sr, si, state, means, st_la, st_ai, st_af, thresholds, n_live,
+                  passes, color_k, rounds):
+    """K4 built in double, launched on float64 tensors with the wrapper's
+    own amp, thresholds and weight sets."""
+    B, N, F = sr.shape
+    amp = torch.sqrt(sr * sr + si * si)
+    thr = (thresholds[None, None, :] * means[:, :, None]).contiguous()
+    wr, wi, taps, counts = online_mod.online_weight_sets(st_la, st_ai, st_af)
+    taps, counts = torch.as_tensor(taps), torch.as_tensor(counts)
+    ins = [state.ring_r, state.ring_i, state.amp]
+    outs = [torch.empty_like(t) for t in ins]
+    out_r, out_i = torch.empty_like(sr), torch.empty_like(si)
+    ptrs = [t.data_ptr() for t in (sr, si, amp, thr, *ins, *outs, out_r, out_i, wr, wi,
+                                   taps, counts)]
+    lib.lws_online_chunk_launch.argtypes = (
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    err = lib.lws_online_chunk_launch(*ptrs, B, N, F, st_af.Q, st_af.L, len(st_la),
+                                      thresholds.shape[0], passes, color_k, rounds,
+                                      state.seen, n_live, None)
+    assert err == 0, err
+    return out_r, out_i, online_mod.ChunkState(*outs, state.seen + N)
+
+
+def chunked(step, sr, si, proc, thr, fixed_mean):
+    """Run `step` (K4 or its plain version) over (sr, si) chunked at (7, 1,
+    rest), then one drain chunk of LA frames; returns the committed rows of
+    the input's frames and the final state. The threshold scale is the
+    running mean of |frame| (fixed_mean: the whole-input mean, as K3's)."""
+    B, T, F = sr.shape
+    LA = proc.look_ahead
+    amp = torch.sqrt(sr * sr + si * si)
+    if fixed_mean:
+        means = amp.mean(dim=(-2, -1))[:, None].expand(B, T + LA)
+    else:
+        fm = torch.cat([amp.mean(dim=-1), torch.zeros((B, LA), dtype=sr.dtype)], dim=1)
+        means = torch.cumsum(fm, dim=1) / torch.arange(1, T + LA + 1, dtype=sr.dtype)
+    state = online_mod.online_chunk_init(proc._st_la, proc._st_af, sr[:, 0], si[:, 0])
+    z = torch.zeros((B, LA, F), dtype=sr.dtype)
+    rows_r, rows_i = [], []
+    for a, b, r, i in ((0, 7, sr[:, :7], si[:, :7]), (7, 8, sr[:, 7:8], si[:, 7:8]),
+                       (8, T, sr[:, 8:], si[:, 8:]), (T, T + LA, z, z)):
+        if b > a:
+            n_live = b - a if b <= T else 0
+            cr, ci, state = step(r.contiguous(), i.contiguous(), state,
+                                 means[:, a:b].contiguous(), n_live)
+            rows_r.append(cr)
+            rows_i.append(ci)
+    return (torch.cat(rows_r, 1)[:, LA:], torch.cat(rows_i, 1)[:, LA:]), state
+
+
 def random_phase(proc, frames, rng, B=2):
     t = np.arange(16000) / 16000.0
     x = np.stack([0.5 * np.sin(2 * np.pi * (200 + 90 * i) * t)
@@ -206,6 +260,37 @@ def main():
                     f"{scheme} passes={ip}", k, p, A))
         print(f"worst float32 {worst:.3e}")
 
+        # K4: chunked, against its plain version (running mean) and against
+        # K3 (fixed mean, bit for bit), float32
+        worst_chunk, k3_equal = 0.0, True
+        for fsize, fshift, la, iters in ((512, 128, 3, 2), (256, 128, 3, 2),
+                                         (512 + 64, 128, 2, 2), (512, 128, 0, 1)):
+            proc = lws_torch.LWS(fsize, fshift, look_ahead=la, device="cpu")
+            A, sr, si = random_phase(proc, 20, rng)
+            thr = torch.tensor(lws_torch.get_thresholds(iters, 1, 0.1, 1), dtype=torch.float32)
+            on = (proc._st_la, proc._st_nofuture, proc._st_af, thr)
+            sch = (proc.inner_passes, proc.inner_scheme)
+
+            def k4(r, i, st, means, n_live):
+                return online_mod._launch_chunk(r, i, st, means, *on, n_live, *sch)
+
+            def plain(r, i, st, means, n_live):
+                return online_mod.online_chunk(r, i, st, means, *on, n_live, *sch)
+
+            (kr, ki), kst = chunked(k4, sr, si, proc, thr, False)
+            (pr, pi), pst = chunked(plain, sr, si, proc, thr, False)
+            d = report(f"chunked online LWS({fsize}, {fshift}) LA={la} {iters} rounds "
+                       f"{proc.inner_scheme}, running mean", (kr, ki), (pr, pi), A)
+            ds = report("  its final state", kst[:2], pst[:2], A)
+            worst_chunk = max(worst_chunk, d, ds)
+            (fr, fi), _ = chunked(k4, sr, si, proc, thr, True)
+            k3 = online_mod._launch(sr, si, *on, *sch)
+            same = torch.equal(fr, k3[0]) and torch.equal(fi, k3[1])
+            k3_equal = k3_equal and same
+            print(f"  K4 chunked (fixed mean) vs K3: {'bit-equal' if same else 'DIFFER'}",
+                  flush=True)
+        print(f"worst float32 chunked {worst_chunk:.3e}")
+
         # the online kernel's schedule in double: agreement to float64 rounding
         lib64 = build_cpu("lws_online", out, "double")
         worst64 = 0.0
@@ -224,8 +309,22 @@ def main():
                 worst64 = max(worst64, report(
                     f"float64 online LWS({fsize}, {fshift}) LA={la} {proc.inner_scheme} "
                     f"passes={ip}", k, p, A))
+            passes, color_k, rounds = online_mod._scheme(1, proc.inner_scheme)
+
+            def k4_64(r, i, st, means, n_live, on=on, sch=(passes, color_k, rounds)):
+                return chunk_float64(lib64, r, i, st, means, *on, n_live, *sch)
+
+            def plain64(r, i, st, means, n_live, on=on, scheme=proc.inner_scheme):
+                return online_mod.online_chunk(r, i, st, means, *on, n_live, 1, scheme)
+
+            k, kst = chunked(k4_64, sr, si, proc, thr, False)
+            p, pst = chunked(plain64, sr, si, proc, thr, False)
+            worst64 = max(worst64, report(
+                f"float64 chunked online LWS({fsize}, {fshift}) LA={la} {proc.inner_scheme}",
+                k, p, A), report("  its final state", kst[:2], pst[:2], A))
         print(f"worst float64 {worst64:.3e}")
-        return 0 if worst < 2e-3 and worst64 < 1e-9 else 1
+        ok = worst < 2e-3 and worst_chunk < 2e-3 and k3_equal and worst64 < 1e-9
+        return 0 if ok else 1
 
 
 if __name__ == "__main__":

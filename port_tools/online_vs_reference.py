@@ -19,7 +19,15 @@ Sections (all by default):
           chip_smoke.py's music inputs (bench.py::make_batch, 32 x 5 s at
           16 kHz, seed 1): consistency after each stage (mean and per
           utterance) and wall times. chip_smoke.py's MUSIC_JAX_DB floor is
-          lws_tpu's final mean here. Several minutes.
+          lws_tpu's final mean here. Several minutes;
+  stream  lws_tpu.StreamingLWS (backend "xla", its per-frame path) and the
+          port's StreamingLWS (device="cpu", the plain chunk path), float32,
+          LWS(512, 128, look_ahead=3, online_iterations=10), on streams 0-1
+          of chip_smoke.py's streaming inputs (bench.py::bench_streaming: 8
+          x 5 s at 16 kHz, seed 5) pushed in 0.5 s chunks, then flush:
+          consistency of the committed spectrogram (mean and per stream),
+          committed frame counts and wall times. chip_smoke.py's
+          STREAM_JAX_DB floor is lws_tpu's mean here.
 """
 from __future__ import annotations
 
@@ -41,7 +49,18 @@ import torch  # noqa: E402
 
 import lws_torch  # noqa: E402
 import lws_tpu  # noqa: E402
-from chip_smoke import MUSIC_B, MUSIC_SECONDS, MUSIC_SEED, SAMPLE_RATE, make_batch  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    MUSIC_B,
+    MUSIC_SECONDS,
+    MUSIC_SEED,
+    SAMPLE_RATE,
+    STREAM_B,
+    STREAM_BLOCK,
+    STREAM_CHUNK,
+    STREAM_SECONDS,
+    STREAM_SEED,
+    make_batch,
+)
 from lws_torch.convert import stencil_from_numpy  # noqa: E402
 from lws_torch.core.online import rtisi_la as torch_rtisi_la  # noqa: E402
 from lws_tpu.core.online import rtisi_la as jax_rtisi_la  # noqa: E402
@@ -137,8 +156,32 @@ def music():
               f"{wall:.1f} s", flush=True)
 
 
+def stream():
+    x = make_batch(STREAM_B, int(STREAM_SECONDS * SAMPLE_RATE), SAMPLE_RATE,
+                   np.random.default_rng(STREAM_SEED))[:2]
+    kw = dict(look_ahead=3, online_iterations=10)
+    j = lws_tpu.LWS(512, 128, dtype=jnp.float32, **kw)
+    t = lws_torch.LWS(512, 128, device="cpu", **kw)
+    from lws_tpu.streaming import StreamingLWS as JaxStream
+    runs = (("lws_tpu xla", j, JaxStream(j, streams=2, keep_frames=True, backend="xla")),
+            ("port plain", t, lws_torch.StreamingLWS(t, streams=2, keep_frames=True,
+                                                     block_frames=STREAM_BLOCK)))
+    for label, proc, s in runs:
+        t0 = time.perf_counter()
+        outs = [s.push(x[:, i:i + STREAM_CHUNK]) for i in range(0, x.shape[-1], STREAM_CHUNK)]
+        outs.append(s.flush())
+        wall = time.perf_counter() - t0
+        y = np.concatenate([np.asarray(o) for o in outs], axis=-1)
+        com = np.stack(s.committed_frames, axis=1)  # (streams, frames, F)
+        c = np.asarray(proc.get_consistency(com))
+        print(f"stream {label}: {com.shape[1]} committed frames per stream, audio "
+              f"{y.shape}, consistency mean {float(c.mean()):.4f} dB, per stream "
+              f"{np.round(c, 4).tolist()}; {wall:.1f} s", flush=True)
+
+
 def main(argv):
-    sections = {"scan": scan, "sparse": sparse, "sparse32": sparse32, "music": music}
+    sections = {"scan": scan, "sparse": sparse, "sparse32": sparse32, "music": music,
+                "stream": stream}
     for name in argv or list(sections):
         sections[name]()
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (the sweep kernel, the online kernel),
-against their plain PyTorch versions.
+"""The CUDA kernels on the card (the sweep kernel, the online kernel, the
+chunked online kernel and the stream around it), against their plain
+PyTorch versions.
 
 Marked `cuda`: each test skips without a CUDA card. This file imports
 neither jax nor lws_tpu, so it also runs where jax is not installed:
@@ -189,3 +190,82 @@ def test_online_kernel_rejects_what_it_does_not_take(cuda_device):
     B = torch.ones((1, 20, 2049), device=cuda_device)
     with pytest.raises(ValueError, match="backend='torch'"):
         wide.online_lws((B, torch.zeros_like(B)), iterations=1)
+
+
+def _chunked(online_mod, own, sr, si, means, thr, backend="auto"):
+    """The chunked online stage over (sr, si) chunked at (17, 1, rest), then
+    one drain chunk of LA frames: the committed rows of the input's frames."""
+    LA = own.look_ahead
+    state = online_mod.online_chunk_init(own._st_la, own._st_af, sr[:, 0], si[:, 0])
+    z = torch.zeros((sr.shape[0], LA, sr.shape[-1]), device=sr.device)
+    rows_r, rows_i = [], []
+    T = sr.shape[1]
+    for r, i, m, n_live in [(sr[:, a:b], si[:, a:b], means[:, a:b], None)
+                            for a, b in ((0, 17), (17, 18), (18, T))] + [
+                                (z, z, means[:, :LA], 0)]:
+        cr, ci, state = online_mod.online_chunk(
+            r.contiguous(), i.contiguous(), state, m.contiguous(), own._st_la,
+            own._st_nofuture, own._st_af, thr, n_live, own.inner_passes, own.inner_scheme,
+            backend)
+        rows_r.append(cr)
+        rows_i.append(ci)
+    return torch.cat(rows_r, 1)[:, LA:], torch.cat(rows_i, 1)[:, LA:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fsize", [512, 256])
+def test_chunked_kernel_equals_online_kernel(cuda_device, fsize):
+    """K4 chunked at (17, 1, rest) and drained, at K3's fixed mean, equals K3
+    bit for bit (Q=4 jacobi at 10 rounds, Q=2 color2x3)."""
+    own = lws_torch.LWS(fsize, 128, device=cuda_device)
+    A, sr, si = _random_phase(own, 100, cuda_device, seed=6)
+    thr = torch.tensor(lws_torch.get_thresholds(10, 1, 0.1, 1), dtype=torch.float32,
+                       device=cuda_device)
+    k3 = online_mod.packed_rtisi_la(sr, si, own._st_la, own._st_nofuture, own._st_af, thr,
+                                    own.inner_passes, own.inner_scheme)
+    amp = torch.sqrt(sr * sr + si * si)
+    means = amp.mean(dim=(-2, -1))[:, None].expand(-1, sr.shape[1])
+    before = online_mod.CHUNK_LAUNCHES
+    k4 = _chunked(online_mod, own, sr, si, means, thr)
+    assert online_mod.CHUNK_LAUNCHES == before + 4
+    assert torch.equal(k4[0], k3[0]) and torch.equal(k4[1], k3[1])
+
+
+@pytest.mark.cuda
+def test_stream_on_cuda_emit_and_plain(cuda_device):
+    """StreamingLWS on the card: emit="device" returns CUDA tensors whose
+    bytes (fetched, with and without prefetch) equal emit="host"'s; the
+    kernel path agrees with the plain chunk path by consistency; a float64
+    stream raises naming backend='torch', and runs with it."""
+    own = lws_torch.LWS(512, 128, look_ahead=3, online_iterations=10, device=cuda_device)
+    t = np.arange(16000) / 16000.0
+    x = np.stack([0.5 * np.sin(2 * np.pi * f * t) + 0.2 * np.sin(2 * np.pi * (300 + 3000 * t) * t)
+                  for f in (220.0, 330.0)]).astype(np.float32)
+
+    def run(**kw):
+        st = lws_torch.StreamingLWS(own, streams=2, block_frames=16, keep_frames=True, **kw)
+        outs = [st.push_block(x[:, i:i + 4000]) for i in range(0, x.shape[-1], 4000)]
+        outs.append(st.flush())
+        return outs, st
+
+    host, st_h = run(emit="host")
+    y = np.concatenate(host, axis=-1)
+    for prefetch in (True, False):
+        before = online_mod.CHUNK_LAUNCHES
+        outs, st = run(emit="device", prefetch=prefetch)
+        assert online_mod.CHUNK_LAUNCHES > before
+        assert all(o.is_cuda for o in outs)
+        np.testing.assert_array_equal(np.concatenate([st.fetch(o) for o in outs], axis=-1), y)
+    _, st_p = run(backend="torch")
+
+    def consistency(st):
+        com = torch.as_tensor(np.stack(st.committed_frames, axis=1), device=cuda_device)
+        return own.get_consistency((com.real.contiguous(), com.imag.contiguous()))
+
+    assert float((consistency(st_h) - consistency(st_p)).abs().max()) <= 0.1
+    own64 = lws_torch.LWS(512, 128, device=cuda_device, dtype=torch.float64)
+    with pytest.raises(ValueError, match="backend='torch'"):
+        lws_torch.StreamingLWS(own64)
+    out = lws_torch.StreamingLWS(own64, backend="torch", block_frames=4).push(x[0, :2000])
+    # 12 frames fit 2000 samples; the first LA=3 fill the look-ahead
+    assert out.shape == ((12 - 3) * 128,) and np.isfinite(out).all()
