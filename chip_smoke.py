@@ -14,7 +14,10 @@ Phases, in order:
      (cases a-d at F=257 / 129, h at F=513, where its weights do not fit
      shared memory), the online kernel (cases e-g) and the chunked online
      kernel (case i: chunked, against the online kernel bit for bit; case
-     j: against its plain version, with the running mean);
+     j: against its plain version, with the running mean), and the grouped
+     sweep kernel K5 (cases k: micro 2 and 4 against the plain group
+     update, micro 1, which its wrapper runs on K1, against K1 and the plain
+     sweeps; then its time at micro 4 on the batch path's input);
   4. the batch path at full width: LWS(512, 128) on 32 x 5 s utterances at
      16 kHz, stft -> batch_lws(|X|) (100 sweeps) -> get_consistency ->
      istft, with the launch counts of that one run, the kernel and plain
@@ -36,7 +39,17 @@ Phases, in order:
      stream wall and the chunked kernel's share of it, and the latency
      table of BENCHMARKS.md (host-synchronous pushes at block_frames 32 and
      8, pipelined device emit at block_frames 1);
-  7. the kernels line (JSON), then the result line (JSON) last.
+  7. the longform path at full width: LWS(4096, 1024) on bench.py's
+     longform workload (one 630 s stream at 48 kHz, F=2049), stft ->
+     batch_lws(|X|) (100 sweeps, segmented by the SM-count plan) ->
+     get_consistency (blocked) -> istft, with the plan S and the K1 launches
+     of that one run, the wall, K1's summed time, the steps per CTA and the
+     bound, the output checks; then case (a)
+     (the segmented sweeps on the kernel against the plain sweeps on the
+     card, a 20 s prefix), (b) the seams (the plan's S = 2 against one
+     segment on a 120 s prefix) and (c) the floor set by lws_tpu's own
+     result on the 20 s prefix;
+  8. the kernels line (JSON), then the result line (JSON) last.
 
 Exits non-zero, before any result line, without CUDA, without the repo's
 lws_torch beside this file, or when any phase fails. Imports nothing of
@@ -104,6 +117,23 @@ MUSIC_MARGIN_DB = 0.5
 STREAM_JAX_DB = 23.3941
 STREAM_MARGIN_DB = 0.5
 
+# The longform path: bench.py's longform workload (bench.py:213-232), one
+# 630 s stream at 48 kHz, LWS(4096, 1024) (Q=4, L=5, F=2049), 100 sweeps at
+# alpha=100, float32. Its checks run on prefixes of the same signal: case
+# (a) and the floor on LONG_PREFIX_SECONDS, the seams on LONG_SEAM_SECONDS
+# (T = 5626, so the plan gives S = 2).
+LONG_SECONDS, LONG_RATE, LONG_SEED = 630.0, 48000, 4
+LONG_FSIZE, LONG_FSHIFT = 4096, 1024
+LONG_PREFIX_SECONDS, LONG_SEAM_SECONDS = 20.0, 120.0
+# lws_tpu's own result on the longform prefix: LWS(4096, 1024) batch_lws,
+# float32, on the CPU (port_tools/online_vs_reference.py, section longform;
+# the port's plain version there: 21.1933 dB too). The card must reach it
+# less LONG_MARGIN_DB. The seams: the plan's segments against one segment,
+# by consistency.
+LONG_JAX_DB = 21.1933
+LONG_MARGIN_DB = 0.5
+TOL_SEAM_DB = 0.1
+
 # Sizes: the main path at full width (bench.py's batch workload), the
 # kernel-vs-plain cases at its frame count with fewer utterances.
 DEVICE = "cuda"
@@ -153,7 +183,7 @@ def card_lines(torch):
           else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
 
 
-KERNELS = ("lws_sweeps", "lws_online")  # sources; lws_online.cu holds K3 and K4
+KERNELS = ("lws_sweeps", "lws_online")  # sources: K1 and K5; K3 and K4
 
 
 def build_phase():
@@ -367,6 +397,103 @@ def chunk_cases(s, torch, lws_torch, online_mod):
     s.check(mag_rel <= TOL_MAGNITUDE,
             f"case j magnitudes preserved: {mag_rel:.2e} (tol {TOL_MAGNITUDE:g})")
     return worst
+
+
+def random_phases(torch, rng, sr, si):
+    """|S| of (sr, si) with seeded random phases, and |S| itself."""
+    amp = torch.sqrt(sr * sr + si * si)
+    ph = torch.as_tensor(rng.uniform(0, 2 * np.pi, tuple(amp.shape)), dtype=torch.float32,
+                         device=amp.device)
+    return (amp * torch.cos(ph)).contiguous(), (amp * torch.sin(ph)).contiguous(), amp
+
+
+def packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod):
+    """Phase 3, the grouped sweep kernel (K5) on the card, float32, on
+    (4, 628, 257) from seeded random phases, LWS(512, 128)'s batch stencil
+    (3 in-frame jacobi passes), 12 sweeps at alpha=1: each micro against the
+    plain group update, and micro = 1 (K1 behind K5's wrapper) against K1
+    bit for bit. Returns the largest max |delta|."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(6)
+    x = make_batch(CASE_B, int(MAIN_SECONDS * SAMPLE_RATE), SAMPLE_RATE, rng)
+    proc = lws_torch.LWS(512, 128, device=dev)
+    sr, si, amp = random_phases(torch, rng, *proc.stft_ri(x))
+    thr = torch.as_tensor(lws_torch.get_thresholds(12, 1, 0.1, 1), dtype=torch.float32,
+                          device=dev)
+    sched = (proc._st_batch, thr)
+    ip, scheme = proc.batch_inner_passes, proc.inner_scheme
+    k1 = sweeps_mod.tiled_lws_sweeps(sr, si, *sched, ip, scheme)
+    worst = 0.0
+    for micro in (1, 2, 4):
+        kr, ki = packed_mod.packed_lws_sweeps(sr, si, *sched, micro, ip, scheme)
+        pr, pi = packed_mod.packed_lws_sweeps(sr, si, *sched, micro, ip, scheme,
+                                              backend="torch")
+        s.sync()
+        d = float(torch.maximum((kr - pr).abs(), (ki - pi).abs()).max())
+        rel = d / float(amp.max())
+        worst = max(worst, d)
+        s.check(np.isfinite(d) and rel <= TOL_CASE,
+                f"case k K5 micro={micro} vs its plain version, {tuple(sr.shape)}, 12 sweeps "
+                f"alpha=1, {ip} jacobi passes: max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g})")
+        if micro == 1:
+            s.check(torch.equal(kr, k1[0]) and torch.equal(ki, k1[1]),
+                    "case k K5 micro=1 vs K1 on the same inputs: bit-equal")
+    return worst
+
+
+def packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod):
+    """K5 through its entry point (lws_torch.ops.packed_lws_sweeps) on the
+    batch path's input, (32, 628, 257) x 100 sweeps at alpha=100 from zero
+    phase, at micro 4 (micro 1 is K1, timed on the batch path): launches,
+    time, bound, consistency, the plain group update's time. Returns the
+    kernels-line entry."""
+    dev = torch.device(DEVICE)
+    B, secs, iters, micro = MAIN_B, MAIN_SECONDS, MAIN_SWEEPS, 4
+    x = make_batch(B, int(secs * SAMPLE_RATE), SAMPLE_RATE, np.random.default_rng(0))
+    proc = lws_torch.LWS(512, 128, device=dev)
+    sr, si = proc.stft_ri(x)
+    amp = torch.sqrt(sr * sr + si * si)
+    pair = (amp, torch.zeros_like(amp))
+    thr = torch.as_tensor(lws_torch.get_thresholds(iters, 100, 0.1, 1), dtype=torch.float32,
+                          device=dev)
+    st, ip, scheme = proc._st_batch, proc.batch_inner_passes, proc.inner_scheme
+    T, F = amp.shape[-2:]
+
+    # one run of the K5 entry point, counted
+    packed_mod.LAUNCHES = 0
+    out = packed_mod.packed_lws_sweeps(*pair, st, thr, micro, ip, scheme)
+    s.sync()
+    launches = packed_mod.LAUNCHES
+    s.check(launches == 1, f"lws_packed kernel launches in the K5 run (micro {micro}): "
+            f"{launches} (expected 1)")
+    c = proc.get_consistency(out)
+    mag_rel = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - amp).abs()
+                     / amp.clamp_min(1e-30)).max())
+    s.check(mag_rel <= TOL_MAGNITUDE and bool(torch.isfinite(c).all()),
+            f"K5 micro={micro}: magnitudes {mag_rel:.2e} (tol {TOL_MAGNITUDE:g}), "
+            f"consistency mean {float(c.mean()):.3f} dB")
+    ms = cuda_ms(torch, lambda: packed_mod.packed_lws_sweeps(*pair, st, thr, micro, ip,
+                                                             scheme), 3)
+    s.sync()
+    t0 = time.perf_counter()
+    plain = packed_mod.packed_lws_sweeps(*pair, st, thr, micro, ip, scheme, backend="torch")
+    s.sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    d01 = float((proc.get_consistency(plain)[:2] - c[:2]).abs().max())
+    s.check(d01 <= TOL_PLAIN_DB, f"K5 micro={micro} vs its plain version, consistency of "
+            f"utterances 0-1: {d01:.4f} dB (tol {TOL_PLAIN_DB})")
+    live = sweeps_mod.sweep_schedule(*pair, thr)[2]
+    bound_ms, bound_by, flops, nbytes, _ = sweep_bound(st, ip, live, T, F, B)
+    serial = int(live.sum(dim=1).max()) * (-(-T // micro)) * (1 + ip)
+    print(f"K5 (grouped sweeps) on {tuple(amp.shape)} x {iters} sweeps, micro={micro}: "
+          f"{ms:.2f} ms ({serial} steps per CTA -> {1e3 * ms / serial:.3f} us per step); "
+          f"plain {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} "
+          f"flop, {nbytes:.4g} B); consistency {float(c.mean()):.3f} dB")
+    return dict(name="lws_packed", route="cuda", source="lws_torch/csrc/lws_sweeps.cu",
+                replaces="lws_tpu/ops/pallas_packed.py:683", launches=launches, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                micro=micro, shape=[B, int(T), int(F)], sweeps=iters, serial_steps=serial,
+                consistency_db=float(c.mean()))
 
 
 def cuda_ms(torch, fn, reps):
@@ -790,7 +917,7 @@ def stream_path(s, torch, lws_torch, online_mod):
 
 
 def main_path(s, torch, lws_torch, sweeps_mod):
-    """Phase 4. Returns the kernels-line entry for lws_sweeps."""
+    """Phase 4. Returns lws_sweeps' numbers on the batch path's run."""
     dev = torch.device(DEVICE)
     B, secs, sr_hz, iters = MAIN_B, MAIN_SECONDS, SAMPLE_RATE, MAIN_SWEEPS
     x = make_batch(B, int(secs * sr_hz), sr_hz, np.random.default_rng(0))
@@ -869,12 +996,147 @@ def main_path(s, torch, lws_torch, sweeps_mod):
           f"{bound_by} ({flops:.4g} flop, {nbytes:.4g} B, live sweeps per utterance "
           f"{int(live.sum(dim=1).min())}-{int(live.sum(dim=1).max())}), "
           f"serial barrier steps per CTA {serial} -> {1e3 * ms / serial:.3f} us per step")
-    return dict(name="lws_sweeps", route="cuda", source="lws_torch/csrc/lws_sweeps.cu",
-                replaces="lws_tpu/ops/pallas_packed.py:1411",
-                launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None,
-                shape=[B, int(T), int(F)], sweeps=iters,
+    return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, shape=[B, int(T), int(F)], sweeps=iters,
                 live_sweeps=int(live.sum()), serial_steps=serial)
+
+
+def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod):
+    """Phase 7. Returns the longform numbers of lws_sweeps (K1 under the
+    segmented sweeps, K2)."""
+    dev = torch.device(DEVICE)
+    n = int(LONG_SECONDS * LONG_RATE)
+    x = make_batch(1, n, LONG_RATE, np.random.default_rng(LONG_SEED))
+    proc = lws_torch.LWS(LONG_FSIZE, LONG_FSHIFT, device=dev)
+    st, ip, scheme = proc._st_batch, proc.batch_inner_passes, proc.inner_scheme
+    thr = torch.as_tensor(lws_torch.get_thresholds(MAIN_SWEEPS, 100, 0.1, 1),
+                          dtype=torch.float32, device=dev)
+
+    # one run of the longform path, through the user entry points, counted;
+    # CUDA events around each K1 call (its wrapper)
+    sweeps_mod.LAUNCHES = 0
+    with KernelTimer(torch, sweeps_mod, "tiled_lws_sweeps") as kt:
+        sr, si = proc.stft_ri(x)
+        amp = torch.sqrt(sr * sr + si * si)
+        pair = (amp, torch.zeros_like(amp))
+        c_in = proc.get_consistency(pair)
+        s.sync()
+        t0 = time.perf_counter()
+        out = proc.batch_lws(pair)
+        s.sync()
+        wall = time.perf_counter() - t0
+        c_out = proc.get_consistency(out)
+        y = proc.istft(out)
+        s.sync()
+    launches = sweeps_mod.LAUNCHES
+    k1_ms = kt.ms()
+    T, F = amp.shape[-2:]
+    S = proc._auto_segments(1, T)
+    blocks = -(-MAIN_SWEEPS // proc._SWEEPS_PER_EXCHANGE) if S > 1 else 1
+    print(f"longform path: LWS({LONG_FSIZE}, {LONG_FSHIFT}) on 1 x {LONG_SECONDS:g} s at "
+          f"{LONG_RATE} Hz, spectrogram {tuple(amp.shape)}, {MAIN_SWEEPS} sweeps, "
+          f"batch_inner_passes={ip}; plan S = {S} ({proc._n_sm} SMs)")
+    s.check(S > 1 and launches == blocks,
+            f"lws_sweeps kernel launches in the longform run: {launches} (S = {S}: one per "
+            f"{proc._SWEEPS_PER_EXCHANGE}-sweep block, expected {blocks})")
+
+    # steps and bound: each segment's live sweeps (its max |S| against the
+    # whole signal's mean thresholds), Tseg frames each
+    Tseg = -(-T // S)
+    a_pad = torch.cat([amp, amp[:, -1:].expand(1, S * Tseg - T, F)], dim=1)
+    seg_max = a_pad.reshape(S, Tseg, F).amax(dim=(-2, -1))
+    live = (seg_max[:, None] > thr[None, :] * amp.mean()).to(torch.int32)
+    bound_ms, bound_by, flops, nbytes, steps = sweep_bound(st, ip, live, Tseg, F, S)
+    print(f"  batch_lws wall {1e3 * wall:.2f} ms -> {LONG_SECONDS / wall:.1f} audio-s/s; K1 "
+          f"(its wrapper, CUDA events, summed over {len(kt.events)} calls) {k1_ms:.2f} ms; "
+          f"{steps} steps per CTA ({Tseg} frames per segment, live sweeps per segment "
+          f"{int(live.sum(dim=1).min())}-{int(live.sum(dim=1).max())}) -> "
+          f"{1e3 * k1_ms / steps:.3f} us per step; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({flops:.4g} flop; {nbytes:.4g} B would take {1e3 * nbytes / PEAK_BYTES_S:.4f} ms)")
+    mag_rel = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - amp).abs()
+                     / amp.clamp_min(1e-30)).max())
+    s.check(mag_rel <= TOL_MAGNITUDE,
+            f"magnitudes preserved: max per-bin relative error {mag_rel:.2e} (tol {TOL_MAGNITUDE:g})")
+    finite = bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()
+                  and torch.isfinite(y).all())
+    s.check(finite and y.shape[0] == 1 and n <= y.shape[-1] < n + proc.fshift,
+            f"finite outputs, istft shape {tuple(y.shape)} for {n} samples at hop {proc.fshift}")
+    c0, c1 = float(c_in[0]), float(c_out[0])
+    print(f"  consistency (blocked): |X| {c0:.4f} dB -> {c1:.4f} dB")
+    s.check(c1 > c0 + 5, f"consistency rises: {c0:.4f} -> {c1:.4f} dB")
+    del out, y
+
+    # (a) the segmented sweeps on the kernel against the plain sweeps on the
+    # card: the 20 s prefix, random phases, 4 segments, an exchange every 5
+    # sweeps, 12 sweeps at alpha=1 (K1's first case at F=2049)
+    rng = np.random.default_rng(9)
+    prefix = x[:, :int(LONG_PREFIX_SECONDS * LONG_RATE)]
+    psr, psi = proc.stft_ri(prefix)
+    r0, i0, pamp = random_phases(torch, rng, psr, psi)
+    thr12 = torch.as_tensor(lws_torch.get_thresholds(12, 1, 0.1, 1), dtype=torch.float32,
+                            device=dev)
+    kw = dict(segments=4, sweeps_per_exchange=5, inner_passes=ip, inner_scheme=scheme)
+    before = sweeps_mod.LAUNCHES
+    kr, ki = seg_mod.segmented_lws_sweeps(r0, i0, st, thr12, **kw)
+    s.sync()
+    a_launches = sweeps_mod.LAUNCHES - before
+    a_ms = cuda_ms(torch, lambda: seg_mod.segmented_lws_sweeps(r0, i0, st, thr12, **kw), 3)
+    s.sync()
+    t0 = time.perf_counter()
+    pr, pi = seg_mod.segmented_lws_sweeps(r0, i0, st, thr12, backend="torch", **kw)
+    s.sync()
+    a_plain_ms = 1e3 * (time.perf_counter() - t0)
+    d = float(torch.maximum((kr - pr).abs(), (ki - pi).abs()).max())
+    rel = d / float(pamp.max())
+    a_live = sweeps_mod.sweep_schedule(r0, i0, thr12)[2]
+    a_bound = sweep_bound(st, ip, a_live.expand(4, -1), -(-r0.shape[-2] // 4), F, 4)[0]
+    s.check(np.isfinite(d) and rel <= TOL_CASE and a_launches == 3,
+            f"case (a) segmented sweeps, kernel vs plain on the card, {tuple(r0.shape)}, 4 "
+            f"segments, exchange every 5, 12 sweeps alpha=1, {a_launches} K1 launches: "
+            f"max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g}); kernel {a_ms:.2f} ms, plain "
+            f"{a_plain_ms:.1f} ms")
+
+    # (b) the seams: the plan's S against one segment, 120 s prefix
+    whole = lws_torch.LWS(LONG_FSIZE, LONG_FSHIFT, device=dev, auto_segment=False)
+    bsr, bsi = proc.stft_ri(x[:, :int(LONG_SEAM_SECONDS * LONG_RATE)])
+    bamp = torch.sqrt(bsr * bsr + bsi * bsi)
+    bpair = (bamp, torch.zeros_like(bamp))
+    S_b = proc._auto_segments(1, bamp.shape[-2])
+    res = {}
+    for label, p in (("plan", proc), ("one segment", whole)):
+        s.sync()
+        t0 = time.perf_counter()
+        o = p.batch_lws(bpair)
+        s.sync()
+        res[label] = (float(p.get_consistency(o)[0]), time.perf_counter() - t0)
+    dseam = abs(res["plan"][0] - res["one segment"][0])
+    s.check(S_b > 1 and dseam <= TOL_SEAM_DB,
+            f"case (b) seams, {tuple(bamp.shape)}: S = {S_b} {res['plan'][0]:.4f} dB "
+            f"({1e3 * res['plan'][1]:.1f} ms) vs one segment {res['one segment'][0]:.4f} dB "
+            f"({1e3 * res['one segment'][1]:.1f} ms): {dseam:.4f} dB (tol {TOL_SEAM_DB})")
+
+    # (c) the floor: the 20 s prefix from zero phase (S = 1), against
+    # lws_tpu's float32 result on the CPU
+    cpair = (pamp, torch.zeros_like(pamp))
+    c_floor = float(proc.get_consistency(proc.batch_lws(cpair))[0])
+    s.check(c_floor >= LONG_JAX_DB - LONG_MARGIN_DB,
+            f"case (c) {tuple(pamp.shape)} from zero phase (S = "
+            f"{proc._auto_segments(1, pamp.shape[-2])}): {c_floor:.4f} dB >= lws_tpu's "
+            f"{LONG_JAX_DB} - {LONG_MARGIN_DB} dB")
+    # K1's kernels-line numbers: launches, time, bound and steps of the
+    # longform run; the plain version's time is case (a)'s, the path's
+    # kernel-vs-plain comparison on one input (its kernel time: case_a)
+    return dict(launches=launches, ms=k1_ms, plain_ms=a_plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, serial_steps=steps, shape=[1, int(T), int(F)],
+                sweeps=MAIN_SWEEPS, segments=S, sweeps_per_exchange=proc._SWEEPS_PER_EXCHANGE,
+                wall_ms=1e3 * wall, audio_s_per_s=LONG_SECONDS / wall, consistency_db=c1,
+                consistency_in_db=c0,
+                case_a=dict(shape=[1, int(r0.shape[-2]), int(F)], segments=4, sweeps=12,
+                            launches=a_launches, ms=a_ms, plain_ms=a_plain_ms,
+                            bound_ms=a_bound, max_abs_err=d),
+                seams_db=res["plan"][0], one_segment_db=res["one segment"][0],
+                seams_ms=1e3 * res["plan"][1], one_segment_ms=1e3 * res["one segment"][1],
+                floor_db=c_floor)
 
 
 def main():
@@ -887,6 +1149,8 @@ def main():
     import lws_torch
     from lws_torch.ops import lws_sweeps as sweeps_mod
     from lws_torch.ops import online as online_mod
+    from lws_torch.ops import packed as packed_mod
+    from lws_torch.ops import segmented as seg_mod
 
     s = Smoke(torch)
     card_lines(torch)
@@ -894,18 +1158,23 @@ def main():
     worst = kernel_cases(s, torch, lws_torch, sweeps_mod)
     worst_online = online_cases(s, torch, lws_torch, online_mod)
     worst_chunk = chunk_cases(s, torch, lws_torch, online_mod)
-    entry = main_path(s, torch, lws_torch, sweeps_mod)
+    worst_packed = packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod)
+    batch_sweeps = main_path(s, torch, lws_torch, sweeps_mod)
+    packed_entry = packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod)
     online_entry, music_sweeps = music_path(s, torch, lws_torch, sweeps_mod, online_mod)
     chunk_entry = stream_path(s, torch, lws_torch, online_mod)
-    # launches: the music path's run (this slice's path); the batch path's
-    # own count and the batch-stage timing at F=513 ride along
-    entry["launches_batch_path"] = entry["launches"]
-    entry["launches"] = music_sweeps.pop("launches")
-    entry["music"] = music_sweeps
+    longform = longform_path(s, torch, lws_torch, sweeps_mod, seg_mod)
+    # K1: the longform path's run (this slice's path) at the top; the batch
+    # path's run and the music path's batch stage nested, each from its own
+    # run
+    entry = dict(name="lws_sweeps", route="cuda", source="lws_torch/csrc/lws_sweeps.cu",
+                 replaces="lws_tpu/ops/pallas_packed.py:1411", library_ms=None,
+                 **longform, batch=batch_sweeps, music=music_sweeps)
     entry["max_abs_err"] = worst
     online_entry["max_abs_err"] = worst_online
     chunk_entry["max_abs_err"] = worst_chunk
-    kernels = [entry, online_entry, chunk_entry]
+    packed_entry["max_abs_err"] = worst_packed
+    kernels = [entry, online_entry, chunk_entry, packed_entry]
     for e in kernels:
         e["checks"] = "pass" if not s.failures else "fail"
     print(json.dumps({"kernels": kernels}))

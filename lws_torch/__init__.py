@@ -2,14 +2,16 @@
 
 The PyTorch / CUDA port of lws_tpu, for NVIDIA Hopper. It exports what is
 ported so far: the `LWS` processor's no-future, online (RTISI-LA) and batch
-stages and its 3-stage `run_lws` (mode="music"), streaming serving
-(`StreamingLWS`, `StreamStats`), the free functions `extspec` /
-`batch_lws` / `nofuture_lws` / `online_lws`, the STFT / iSTFT / consistency
-functions, the host-side window and weight construction, and the plain
-PyTorch sweeps and online loops. For CUDA float32 data the Gauss-Seidel
-sweep, the online stage and the stream's chunked online step run in
-hand-written CUDA kernels (lws_torch/csrc/lws_sweeps.cu,
-lws_torch/csrc/lws_online.cu).
+stages and its 3-stage `run_lws` (mode="music"), long inputs (time
+segmentation, macro chunking, blocked STFT / iSTFT / consistency),
+streaming serving (`StreamingLWS`, `StreamStats`), the free functions
+`extspec` / `batch_lws` / `nofuture_lws` / `online_lws`, the STFT / iSTFT /
+consistency functions, the host-side window and weight construction, the
+plain PyTorch sweeps and online loops, and the kernel entry points
+`segmented_lws_sweeps`, `packed_lws_sweeps` and `packed_supported`. For
+CUDA float32 data the Gauss-Seidel sweep, the grouped sweep, the online
+stage and the stream's chunked online step run in hand-written CUDA
+kernels (lws_torch/csrc/lws_sweeps.cu, lws_torch/csrc/lws_online.cu).
 
 Entry points run on CUDA unless the caller passes device="cpu". lws_torch
 imports neither jax nor lws_tpu.
@@ -17,10 +19,11 @@ imports neither jax nor lws_tpu.
 from __future__ import annotations
 
 from .convert import stencil_from_numpy, stream_state_from_numpy
-from .core.batch import lws_sweeps
+from .core.batch import lws_sweeps, packed_sweeps
 from .core.online import ChunkState, online_chunk, online_chunk_init, rtisi_la
 from .core.stencil import Stencil, make_stencil, merge, split
 from .functional import batch_lws, extspec, nofuture_lws, online_lws
+from .ops import packed_lws_sweeps, packed_supported, segmented_lws_sweeps
 from .processor import LWS, lws
 from .streaming import StreamingLWS, StreamStats
 from .stft import (
@@ -50,5 +53,6 @@ __all__ = [
     "istft_ri", "get_consistency_ri", "lws_sweeps", "Stencil", "make_stencil",
     "split", "merge", "stencil_from_numpy", "rtisi_la", "extspec", "batch_lws",
     "nofuture_lws", "online_lws", "StreamingLWS", "StreamStats", "ChunkState",
-    "online_chunk", "online_chunk_init", "stream_state_from_numpy",
+    "online_chunk", "online_chunk_init", "stream_state_from_numpy", "packed_sweeps",
+    "packed_lws_sweeps", "packed_supported", "segmented_lws_sweeps",
 ]

@@ -9,7 +9,7 @@ from .stencil import (
     time_extend,
     update_frame,
 )
-from .batch import lws_sweeps
+from .batch import lws_sweeps, packed_sweeps
 from .online import rtisi_la
 
 __all__ = [
@@ -23,5 +23,6 @@ __all__ = [
     "split",
     "merge",
     "lws_sweeps",
+    "packed_sweeps",
     "rtisi_la",
 ]

@@ -6,9 +6,11 @@ reference's order (frame m reads frames m-Q+1..m-1 from this sweep and
 m+1..m+Q-1 from the previous one). The no-future schedule is the same
 sweep with a v = -1 stencil built from the asymmetric-init weights.
 
-This is the plain version of the CUDA sweep kernel
-(lws_torch/ops/lws_sweeps.py, lws_torch/csrc/lws_sweeps.cu); the kernel's
-wrapper takes it for CPU tensors or backend="torch".
+`lws_sweeps` is the plain version of the CUDA sweep kernel
+(lws_torch/ops/lws_sweeps.py, lws_torch/csrc/lws_sweeps.cu) and
+`packed_sweeps` that of the grouped sweep kernel (lws_torch/ops/packed.py,
+the same source); each wrapper takes its plain version for CPU tensors or
+backend="torch".
 """
 from __future__ import annotations
 
@@ -16,8 +18,10 @@ import torch
 
 from .stencil import (
     Stencil,
+    _taps,
     freq_extend,
     make_time_halos,
+    phase_update,
     time_extend,
     update_frame,
 )
@@ -87,3 +91,78 @@ def lws_sweeps(
                          inner_scheme)
     return (xr[..., Q - 1:Q - 1 + T, L:L + F].contiguous(),
             xi[..., Q - 1:Q - 1 + T, L:L + F].contiguous())
+
+
+def packed_sweeps(
+    sr: torch.Tensor,
+    si: torch.Tensor,
+    st: Stencil,
+    thresholds,
+    micro: int = 1,
+    inner_passes: int = 1,
+    inner_scheme: str = "jacobi",
+):
+    """len(thresholds) sweeps over (..., T, F) in groups of `micro` frames:
+    the plain version of lws_tpu's packed_lws_sweeps (_sweeps_kernel).
+
+    micro = 1 is the frame-by-frame Gauss-Seidel sweep, `lws_sweeps`.
+    micro > 1 updates frames [g*micro, (g+1)*micro) together, each from the
+    state as it was before the group (block Jacobi inside a group, so an
+    off-centre tap on a frame of the same group reads its old value), with
+    the edge-replica halos and the per-item mean. The in-frame passes run
+    over the group's centre rows and are always jacobi passes (fallback: the
+    original centre row), whatever `inner_scheme` says, as lws_tpu's group
+    update does (pallas_packed.py:646-665); `inner_passes` counts only where
+    the stencil has a centre row. The last group stops at frame T-1 (the
+    `valid` mask). A sweep no bin passes is skipped; the skip is exact.
+    """
+    micro = max(1, int(micro))
+    if micro == 1:
+        return lws_sweeps(sr, si, st, thresholds, order="gs",
+                          inner_passes=inner_passes, inner_scheme=inner_scheme)
+    thresholds = torch.as_tensor(thresholds, dtype=sr.dtype, device=sr.device)
+    if thresholds.shape[0] == 0:
+        return sr, si
+    Q, L = st.Q, st.L
+    Q1 = Q - 1
+    T, F = sr.shape[-2:]
+    amp = torch.sqrt(sr * sr + si * si)
+    mean_amp = amp.mean(dim=(-2, -1), keepdim=True)
+    amax = amp.amax(dim=(-2, -1), keepdim=True)
+    xr0, xi0 = freq_extend(sr, si, L)
+    top_r, bot_r = make_time_halos(xr0, Q)
+    top_i, bot_i = make_time_halos(xi0, Q)
+    xr = time_extend(xr0, top_r, bot_r)
+    xi = time_extend(xi0, top_i, bot_i)
+
+    idx, wr_off, wi_off = st._off_centre
+    wr_c, wi_c = st.Wr[Q1][None], st.Wi[Q1][None]
+    has_centre = st.has_centre
+    for it in range(thresholds.shape[0]):
+        thr = thresholds[it] * mean_amp  # (..., 1, 1)
+        if not bool((amax > thr).any()):
+            continue
+        for start in range(0, T, micro):
+            g = min(micro, T - start)
+            # (..., g, 2Q-1, F+2L): the rows each frame of the group reads,
+            # all from the state before the group
+            win = torch.stack([xr[..., start + j:start + j + 2 * Q1 + 1, :]
+                               for j in range(g)], dim=-3)
+            wii = torch.stack([xi[..., start + j:start + j + 2 * Q1 + 1, :]
+                               for j in range(g)], dim=-3)
+            tr, ti = _taps(win.index_select(-2, idx), wii.index_select(-2, idx),
+                           wr_off, wi_off, F)
+            amp_g = amp[..., start:start + g, :]
+            row_r, row_i = win[..., Q1, :], wii[..., Q1, :]
+            old_r, old_i = row_r[..., L:L + F], row_i[..., L:L + F]
+            for _ in range(inner_passes if has_centre else 1):
+                fr, fi = tr, ti
+                if has_centre:
+                    cr, ci = _taps(row_r[..., None, :], row_i[..., None, :], wr_c, wi_c, F)
+                    fr, fi = tr + cr, ti + ci
+                new_r, new_i = phase_update(fr, fi, amp_g, old_r, old_i, thr)
+                row_r, row_i = freq_extend(new_r, new_i, L)
+            xr[..., Q1 + start:Q1 + start + g, :] = row_r
+            xi[..., Q1 + start:Q1 + start + g, :] = row_i
+    return (xr[..., Q1:Q1 + T, L:L + F].contiguous(),
+            xi[..., Q1:Q1 + T, L:L + F].contiguous())

@@ -45,6 +45,9 @@ def _library():
         lib.lws_sweeps_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.lws_sweeps_launch.restype = ctypes.c_int
+        lib.lws_packed_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        lib.lws_packed_launch.restype = ctypes.c_int
         lib.lws_sweeps_error_string.argtypes = [ctypes.c_int]
         lib.lws_sweeps_error_string.restype = ctypes.c_char_p
     return lib
@@ -73,15 +76,14 @@ def _schedule_args(st: Stencil, inner_passes: int, inner_scheme: str):
     return max(1, int(inner_passes)), 0, 1, int(has_centre)
 
 
-def _reject_tpu_knobs(storage, micro, lane_fold, tap_chunks, lane_skip):
-    asked = {k: v for k, v, default in (
-        ("storage", storage, None), ("micro", micro, 1),
-        ("lane_fold", lane_fold, 1), ("tap_chunks", tap_chunks, 1),
-        ("lane_skip", lane_skip, False)) if v != default}
+def reject_tpu_knobs(entry: str, defaults: dict, **knobs):
+    """Raise for any of lws_tpu's TPU launch knobs given at other than its
+    default: they have no meaning on this card."""
+    asked = sorted(k for k, v in knobs.items() if v != defaults[k])
     if asked:
         raise ValueError(
-            f"lws_torch: {sorted(asked)} are TPU launch knobs of "
-            "lws_tpu.ops.tiled_lws_sweeps and are not carried to the port")
+            f"lws_torch: {asked} are TPU launch knobs of lws_tpu.ops.{entry} "
+            "and are not carried to the port")
 
 
 def tiled_lws_sweeps(
@@ -109,7 +111,10 @@ def tiled_lws_sweeps(
     launches the kernel for CUDA float32 tensors and runs the plain version
     for CPU tensors; backend="torch" runs the plain version anywhere.
     """
-    _reject_tpu_knobs(storage, micro, lane_fold, tap_chunks, lane_skip)
+    reject_tpu_knobs("tiled_lws_sweeps",
+                     dict(storage=None, micro=1, lane_fold=1, tap_chunks=1, lane_skip=False),
+                     storage=storage, micro=micro, lane_fold=lane_fold,
+                     tap_chunks=tap_chunks, lane_skip=lane_skip)
     if backend not in ("auto", "torch"):
         raise ValueError(f"lws_torch: backend must be 'auto' or 'torch', got {backend!r}")
     if backend == "torch" or sr.device.type == "cpu":
@@ -125,11 +130,23 @@ def tiled_lws_sweeps(
 
 def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
     global LAUNCHES
+    out, launched = launch_padded(
+        "lws_sweeps_launch", sr, si, st, thresholds, halo, mean_amp,
+        _schedule_args(st, inner_passes, inner_scheme))
+    LAUNCHES += launched
+    return out
+
+
+def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, schedule):
+    """Check the inputs, build the padded state and the schedule, and run
+    csrc/lws_sweeps.cu's `entry` (lws_sweeps_launch or lws_packed_launch)
+    once with `schedule` (its int arguments after `iters`). Returns the
+    output pair and whether a kernel was launched (not for zero sweeps)."""
     dev = sr.device
     for name, t in (("sr", sr), ("si", si), ("st.Wr", st.Wr), ("st.Wi", st.Wi)):
         if t.dtype != torch.float32:
             raise TypeError(
-                f"lws_torch: the CUDA sweep kernel takes float32, {name} is "
+                f"lws_torch: the CUDA sweep kernels take float32, {name} is "
                 f"{t.dtype}; use backend='torch' for the plain version")
         if t.device != dev:
             raise ValueError(f"lws_torch: {name} is on {t.device}, sr on {dev}")
@@ -139,7 +156,7 @@ def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
     shape = sr.shape
     T, F = shape[-2:]
     if not 1 <= Q <= MAX_Q:
-        raise ValueError(f"lws_torch: the sweep kernel takes Q <= {MAX_Q}, got Q={Q}")
+        raise ValueError(f"lws_torch: the sweep kernels take Q <= {MAX_Q}, got Q={Q}")
     if st.n_bins != F or tuple(st.Wr.shape) != (2 * Q - 1, 2 * L + 1, F):
         raise ValueError(f"lws_torch: stencil {tuple(st.Wr.shape)} does not fit F={F}")
     if F < L + 1:
@@ -147,7 +164,7 @@ def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
     thresholds = torch.as_tensor(thresholds, device=dev).to(torch.float32)
     iters = int(thresholds.shape[0])
     if iters == 0:
-        return sr, si
+        return (sr, si), False
 
     B = sr.numel() // (T * F)
     sr3 = sr.reshape(B, T, F)
@@ -168,16 +185,14 @@ def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
     wi = st.Wi.contiguous()
     thr = thr.contiguous()
     live = live.contiguous()
-    passes, color_k, rounds, has_centre = _schedule_args(st, inner_passes, inner_scheme)
 
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.lws_sweeps_launch(
+    err = getattr(lib, entry)(
         xr.data_ptr(), xi.data_ptr(), amp.data_ptr(), wr.data_ptr(),
         wi.data_ptr(), thr.data_ptr(), live.data_ptr(),
-        B, T, F, Q, L, iters, passes, color_k, rounds, has_centre, stream)
+        B, T, F, Q, L, iters, *schedule, stream)
     if err != 0:
         msg = lib.lws_sweeps_error_string(err).decode()
-        raise RuntimeError(f"lws_torch: lws_sweeps launch failed: {msg} ({err})")
-    LAUNCHES += 1
-    return (xr[:, Q1:Q1 + T].reshape(shape), xi[:, Q1:Q1 + T].reshape(shape))
+        raise RuntimeError(f"lws_torch: {entry} failed: {msg} ({err})")
+    return (xr[:, Q1:Q1 + T].reshape(shape), xi[:, Q1:Q1 + T].reshape(shape)), True

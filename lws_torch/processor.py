@@ -14,13 +14,22 @@ with backend="torch" (lws_torch/ops/lws_sweeps.py); the online (RTISI-LA)
 stage likewise through the CUDA online kernel or the plain frame-commit
 loop (lws_torch/ops/online.py). run_lws is no-future -> online -> batch.
 
+Long inputs, as lws_tpu (processor.py:535-651): on CUDA with
+`auto_segment=True`, an utterance that leaves SMs idle runs as S time
+segments (ops/segmented.py, K2 over K1), S = min(n_sm // B, 8, T // 2048)
+when n_sm // B >= 2 (n_sm the card's SM count in place of lws_tpu's
+sublane pack; the cap of 8 and the 2048-frame floor are lws_tpu's), with
+halos exchanged every _SWEEPS_PER_EXCHANGE sweeps; past _MACRO_T frames
+the sweeps run in macro chunks of about _MACRO_CHUNK frames with their
+real neighbours as frozen halos and the whole signal's mean. The plan
+depends on the device alone, not on the backend; on the CPU S = 1.
+
 The processor runs on CUDA unless `device` names another device; without
 CUDA and without `device`, construction raises.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-order != "gs" (A12), batch_lws(mesh=...) (A14), and spectrograms or
-signals past the one-shot STFT / sweep limits (A8). The TPU launch knobs
-(pallas_*) and auto_segment are not carried over.
+order != "gs" (A12) and batch_lws(mesh=...) (A14). The TPU launch knobs
+(pallas_*) are not carried over.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from ._device import real_dtype, resolve_device
 from .core.stencil import make_stencil, merge, split
 from .ops.lws_sweeps import tiled_lws_sweeps
 from .ops.online import packed_rtisi_la
+from .ops.segmented import segmented_lws_sweeps
 from .weights import build_stencil, create_weights
 from .windows import (
     build_asymmetric_windows,
@@ -45,9 +55,6 @@ from .windows import (
 
 __all__ = ["LWS", "lws"]
 
-# lws_tpu macro-chunks the sweeps past this many frames (ROADMAP A8).
-MACRO_T = 150_000
-
 
 class LWS:
     """Fast spectrogram phase recovery using Local Weighted Sums, PyTorch.
@@ -58,7 +65,25 @@ class LWS:
     CUDA) and `dtype` (float32 default, float64 supported on the plain
     path) place the processor; `backend` is "auto" (kernels on CUDA
     float32, plain PyTorch on the CPU) or "torch" (plain PyTorch anywhere).
+    `auto_segment` enables time segmentation and macro chunking of long
+    inputs (lws_tpu's default, True).
     """
+
+    # Macro time chunking past _MACRO_T frames, in chunks of about
+    # _MACRO_CHUNK: lws_tpu's values (sized there for a 16 GB TPU), kept so
+    # the seams fall where lws_tpu puts them. Instances may override them.
+    _MACRO_T = 150_000
+    _MACRO_CHUNK = 60_000
+    # Frames per segment below which an utterance is not segmented, and the
+    # most segments: lws_tpu's values. On an H100 the SM count's S = 14
+    # lost 0.35 dB against S = 8 on a 630 s stream, so the cap stays.
+    # Sweeps per halo exchange: lws_tpu exchanges every 10, which cost 0.17
+    # dB at two segments of a 120 s stream against one; every 3 stays
+    # within 0.08 dB there and, at S = 8 on 630 s, within 0.05 dB of every
+    # 10, on three signals (port_tools/segment_plan_probe.py).
+    _SEG_MIN_FRAMES = 2048
+    _SEG_CAP = 8
+    _SWEEPS_PER_EXCHANGE = 3
 
     def __init__(
         self,
@@ -90,8 +115,12 @@ class LWS:
         inner_scheme=None,
         backend="auto",
         device=None,
+        auto_segment=True,
     ):
         self.device = resolve_device(device)
+        self.auto_segment = bool(auto_segment)
+        self._n_sm = (torch.cuda.get_device_properties(self.device).multi_processor_count
+                      if self.device.type == "cuda" else 0)
         if order != "gs":
             raise NotImplementedError(
                 f"lws_torch: order={order!r} is not ported yet (ROADMAP A12)")
@@ -244,14 +273,69 @@ class LWS:
         return torch.as_tensor(np.asarray(thresholds, dtype=np.float64)).to(
             self.device, self.rdtype)
 
-    def _sweeps(self, pair, thr, st, inner_passes, inner_scheme):
-        if pair[0].shape[-2] > MACRO_T:
-            raise NotImplementedError(
-                f"lws_torch: {pair[0].shape[-2]} frames exceed {MACRO_T}; "
-                "macro time-chunking is ROADMAP A8")
-        return tiled_lws_sweeps(*pair, st=st, thresholds=thr,
-                                inner_passes=inner_passes,
-                                inner_scheme=inner_scheme, backend=self.backend)
+    def _auto_segments(self, B, T):
+        """Time segments for B utterances of T frames: S = min(n_sm // B, 8,
+        T // 2048) when n_sm // B >= 2, else 1, with n_sm the processor's
+        SM count (0 off CUDA, so S = 1 there); 1 with auto_segment=False."""
+        if not self.auto_segment:
+            return 1
+        free = self._n_sm // max(1, B)
+        if free < 2:
+            return 1
+        return max(1, min(free, self._SEG_CAP, T // self._SEG_MIN_FRAMES))
+
+    def _macro_sweeps(self, pair, thr, st, inner_passes, inner_scheme):
+        """The sweeps in macro chunks of about _MACRO_CHUNK frames, one after
+        another, each with its real neighbour frames as frozen halos (edge
+        replicas at the true edges) and the whole signal's mean magnitude,
+        so a seam behaves like a segment seam that never exchanges."""
+        sr, si = pair
+        shape = sr.shape
+        T, F = shape[-2:]
+        sr, si = sr.reshape(-1, T, F), si.reshape(-1, T, F)
+        B = sr.shape[0]
+        Q1 = self._Qi - 1
+        n = -(-T // self._MACRO_CHUNK)
+        bounds = [round(i * T / n) for i in range(n + 1)]
+        mean = torch.sqrt(sr * sr + si * si).mean(dim=(-2, -1))
+
+        def edge_rows(x, lo, hi, edge):
+            # rows [lo, hi) clamped to [0, T), the edge frame's replicas
+            # where they fall outside
+            part = x[:, max(lo, 0):min(hi, T)]
+            miss = (hi - lo) - part.shape[1]
+            if miss:
+                pad = x[:, edge:edge + 1].expand(B, miss, F)
+                part = torch.cat([pad, part] if lo < 0 else [part, pad], dim=1)
+            return part
+
+        outs_r, outs_i = [], []
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            halo = (edge_rows(sr, a - Q1, a, 0), edge_rows(si, a - Q1, a, 0),
+                    edge_rows(sr, b, b + Q1, T - 1), edge_rows(si, b, b + Q1, T - 1))
+            o_r, o_i = self._sweep_fn((sr[:, a:b], si[:, a:b]), thr, st, inner_passes,
+                                      inner_scheme, halo=halo, mean_amp=mean)
+            outs_r.append(o_r)
+            outs_i.append(o_i)
+        return (torch.cat(outs_r, dim=1).reshape(shape),
+                torch.cat(outs_i, dim=1).reshape(shape))
+
+    def _sweep_fn(self, pair, thr, st, inner_passes, inner_scheme, halo=None,
+                  mean_amp=None):
+        """The batch / no-future dispatch: macro chunks past _MACRO_T frames
+        (not inside a chunk), then segmented sweeps when the plan gives S > 1,
+        else the sweep kernel (or its plain version) on the whole input."""
+        sr, si = pair
+        T = sr.shape[-2]
+        if halo is None and self.auto_segment and T > self._MACRO_T:
+            return self._macro_sweeps(pair, thr, st, inner_passes, inner_scheme)
+        S = self._auto_segments(sr.numel() // (T * sr.shape[-1]), T)
+        kw = dict(inner_passes=inner_passes, inner_scheme=inner_scheme, halo=halo,
+                  mean_amp=mean_amp, backend=self.backend)
+        if S > 1:
+            return segmented_lws_sweeps(sr, si, st, thr, segments=S,
+                                        sweeps_per_exchange=self._SWEEPS_PER_EXCHANGE, **kw)
+        return tiled_lws_sweeps(sr, si, st, thr, **kw)
 
     def nofuture_lws(self, S, iterations=None, thresholds=None):
         """No-future initialisation pass (strictly-past stencil, W_ai weights)."""
@@ -262,7 +346,7 @@ class LWS:
         was_pair = self._is_pair(S)
         pair = self._as_pair(S)
         if thr.shape[0]:
-            pair = self._sweeps(pair, thr, self._st_nofuture, 1, "jacobi")
+            pair = self._sweep_fn(pair, thr, self._st_nofuture, 1, "jacobi")
         return self._ret(pair, was_pair)
 
     def online_lws(self, S, iterations=None, thresholds=None):
@@ -293,8 +377,8 @@ class LWS:
         was_pair = self._is_pair(S)
         pair = self._as_pair(S)
         if thr.shape[0]:
-            pair = self._sweeps(pair, thr, self._st_batch,
-                                self.batch_inner_passes, self.inner_scheme)
+            pair = self._sweep_fn(pair, thr, self._st_batch,
+                                  self.batch_inner_passes, self.inner_scheme)
         return self._ret(pair, was_pair)
 
     def run_lws(self, S):

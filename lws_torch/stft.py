@@ -12,8 +12,13 @@ input's device. The complex-array functions keep the reference signatures
 at the numpy boundary: numpy in, numpy out, computed on `device` (CUDA
 unless the caller passes device="cpu").
 
-Not in this slice (ROADMAP A8): the bounded-memory blocked paths. Inputs
-past the one-shot limits below raise NotImplementedError.
+Past the one-shot limits below (frames), the functions switch to the
+bounded-memory blocked paths as lws_tpu does: frames are independent, so
+the STFT analyses chunks of the signal and concatenates them; overlap-add
+is linear in the frames, so the iSTFT accumulates chunk-local
+overlap-adds, and the consistency metric accumulates its two norms per
+frame chunk. Only the float addition order at the chunk seams differs
+from the one-shot path.
 """
 from __future__ import annotations
 
@@ -27,16 +32,12 @@ from .windows import synthwin
 __all__ = ["stft", "istft", "get_consistency", "stft_ri", "istft_ri",
            "get_consistency_ri", "frame_signal", "overlap_add"]
 
-# One-shot limits of lws_tpu's stft/istft (frames) and consistency metric;
-# past them the JAX package switches to blocked paths, which are ROADMAP A8.
+# lws_tpu's one-shot limits (frames): stft / istft past LONGFORM_BLOCK and
+# the consistency metric past CONSISTENCY_BLOCK take the blocked paths, in
+# blocks of CONSISTENCY_BLOCK frames. The same limits keep the seams where
+# lws_tpu has them.
 LONGFORM_BLOCK = 131072
 CONSISTENCY_BLOCK = 16384
-
-
-def _not_ported(what: str, M: int, limit: int):
-    raise NotImplementedError(
-        f"lws_torch: {what} of {M} frames exceeds the one-shot limit of "
-        f"{limit}; the blocked long-form paths are ROADMAP A8")
 
 
 def _stft_layout(n_samples: int, fsize: int, fshift: int, perfectrec: bool):
@@ -89,10 +90,31 @@ def _as_tensor(x, device) -> torch.Tensor:
 
 def _stft(x, awin_t, fsize, fshift, fftsize, perfectrec):
     pre, post, M = _stft_layout(x.shape[-1], fsize, fshift, perfectrec)
-    x = tnf.pad(x, (pre, post))
+    return _stft_frames(tnf.pad(x, (pre, post)), awin_t, fsize, fshift, M, fftsize)
+
+
+def _stft_frames(x, awin_t, fsize, fshift, M, fftsize):
+    """The M frames of an already padded signal -> split spectrum."""
     frames = frame_signal(x, fsize, fshift, M) * awin_t
     spec = torch.fft.rfft(frames, n=fftsize, dim=-1)
     return spec.real.contiguous(), spec.imag.contiguous()
+
+
+def _stft_blocked(x, awin_t, fsize, fshift, fftsize, perfectrec,
+                  block=CONSISTENCY_BLOCK):
+    """Bounded-memory STFT: chunks of the padded signal, each analysed
+    alone, concatenated; bit-equal per frame to the one-shot path."""
+    pre, post, M = _stft_layout(x.shape[-1], fsize, fshift, perfectrec)
+    x = tnf.pad(x, (pre, post))
+    parts = [_stft_frames(x[..., m0 * fshift:(m1 - 1) * fshift + fsize], awin_t,
+                          fsize, fshift, m1 - m0, fftsize)
+             for m0, m1 in _blocks(M, block)]
+    return (torch.cat([p[0] for p in parts], dim=-2),
+            torch.cat([p[1] for p in parts], dim=-2))
+
+
+def _blocks(M, block):
+    return [(m0, min(M, m0 + block)) for m0 in range(0, M, block)]
 
 
 def stft_ri(x, fsize, fshift, awin, fftsize=None, perfectrec=False,
@@ -113,9 +135,9 @@ def stft_ri(x, fsize, fshift, awin, fftsize=None, perfectrec=False,
         Q = -(-fsize // fshift)
         x = tnf.pad(x, ((Q - 1) * fshift, (Q - 1) * fshift))
     _, _, M = _stft_layout(x.shape[-1], fsize, fshift, bool(perfectrec))
-    if M > LONGFORM_BLOCK:
-        _not_ported("stft", M, LONGFORM_BLOCK)
     awin_t = torch.as_tensor(np.asarray(awin)).to(x.device, x.dtype)
+    if M > LONGFORM_BLOCK:
+        return _stft_blocked(x, awin_t, fsize, fshift, fftsize, bool(perfectrec))
     return _stft(x, awin_t, fsize, fshift, fftsize, bool(perfectrec))
 
 
@@ -140,11 +162,58 @@ def _istft(sr, si, swin_t, fshift, fftsize, perfectrec):
     frames = frames * swin_t[:fsize]
     T = fshift * (M - 1) + fsize
     signal = overlap_add(frames, fshift)[..., :T]
-    if perfectrec:
-        residual = fsize % fshift
-        pre = fsize - fshift if residual == 0 else fsize - residual
-        signal = signal[..., pre:(fshift - fsize)]
-    return signal
+    return _trim(signal, fsize, fshift) if perfectrec else signal
+
+
+def _trim(signal, fsize, fshift):
+    """Drop the perfectrec alignment padding of a synthesised signal."""
+    residual = fsize % fshift
+    pre = fsize - fshift if residual == 0 else fsize - residual
+    return signal[..., pre:(fshift - fsize)]
+
+
+def _istft_blocked(sr, si, swin_t, fshift, fftsize, perfectrec,
+                   block=CONSISTENCY_BLOCK):
+    """Bounded-memory iSTFT: each frame chunk's overlap-add is added into
+    the signal at its offset (the one-shot sum, up to the addition order at
+    the chunk seams)."""
+    M, Nreal = sr.shape[-2], sr.shape[-1]
+    fsize = 2 * (Nreal - 1)
+    y = torch.zeros(sr.shape[:-2] + (fshift * (M - 1) + fsize,), dtype=sr.dtype,
+                    device=sr.device)
+    for m0, m1 in _blocks(M, block):
+        seg = _istft(sr[..., m0:m1, :], si[..., m0:m1, :], swin_t, fshift, fftsize, False)
+        y[..., m0 * fshift:m0 * fshift + seg.shape[-1]] += seg
+    return _trim(y, fsize, fshift) if perfectrec else y
+
+
+def _consistency(sr, si, awin_t, swin_t, fsize, fshift, fftsize, perfectrec):
+    x = _istft(sr, si, swin_t, fshift, fftsize, perfectrec)
+    br, bi = _stft(x, awin_t, fsize, fshift, fftsize, perfectrec)
+    dr, di = br - sr, bi - si
+    num = torch.sum(sr * sr + si * si, dim=(-2, -1))
+    den = torch.sum(dr * dr + di * di, dim=(-2, -1))
+    return 10.0 * (torch.log10(num) - torch.log10(den))
+
+
+def _consistency_blocked(sr, si, awin_t, swin_t, fsize, fshift, fftsize,
+                         perfectrec, block=CONSISTENCY_BLOCK):
+    """The consistency metric in frame blocks: the blocked iSTFT, then the
+    re-analysis and both norms accumulated per frame chunk (the one-shot
+    metric up to the addition order at the seams)."""
+    M = sr.shape[-2]
+    y = _istft_blocked(sr, si, swin_t, fshift, fftsize, perfectrec, block=block)
+    pre, post, M2 = _stft_layout(y.shape[-1], fsize, fshift, perfectrec)
+    y = tnf.pad(y, (pre, post))
+    num = den = 0.0
+    for m0, m1 in _blocks(min(M, M2), block):
+        ys = y[..., m0 * fshift:(m1 - 1) * fshift + fsize]
+        br, bi = _stft_frames(ys, awin_t, fsize, fshift, m1 - m0, fftsize)
+        src, sic = sr[..., m0:m1, :], si[..., m0:m1, :]
+        dr, di = br - src, bi - sic
+        num = num + torch.sum(src * src + sic * sic, dim=(-2, -1))
+        den = den + torch.sum(dr * dr + di * di, dim=(-2, -1))
+    return 10.0 * (torch.log10(num) - torch.log10(den))
 
 
 def _prep_swin(swin, awin, fshift, fftsize):
@@ -168,11 +237,10 @@ def istft_ri(sr, si, fshift, swin, awin=None, fftsize=None, perfectrec=False,
     fsize = 2 * (Nreal - 1)
     if fftsize is None:
         fftsize = fsize
-    if sr.shape[-2] > LONGFORM_BLOCK:
-        _not_ported("istft", sr.shape[-2], LONGFORM_BLOCK)
     swin = _prep_swin(swin, awin, fshift, fftsize)
     swin_t = torch.as_tensor(swin).to(sr.device, sr.dtype)
-    return _istft(sr, si, swin_t, int(fshift), int(fftsize), bool(perfectrec))
+    fn = _istft_blocked if sr.shape[-2] > LONGFORM_BLOCK else _istft
+    return fn(sr, si, swin_t, int(fshift), int(fftsize), bool(perfectrec))
 
 
 def istft(spec, fshift, swin, awin=None, fftsize=None, perfectrec=False,
@@ -193,16 +261,10 @@ def get_consistency_ri(sr, si, fsize, fshift, awin, swin, fftsize=None,
     si = _as_tensor(si, sr.device)
     if fftsize is None:
         fftsize = 2 * (sr.shape[-1] - 1)
-    if sr.shape[-2] > CONSISTENCY_BLOCK:
-        _not_ported("consistency", sr.shape[-2], CONSISTENCY_BLOCK)
     swin_t = torch.as_tensor(_prep_swin(swin, None, fshift, fftsize)).to(sr.device, sr.dtype)
     awin_t = torch.as_tensor(np.asarray(awin)).to(sr.device, sr.dtype)
-    x = _istft(sr, si, swin_t, int(fshift), int(fftsize), bool(perfectrec))
-    br, bi = _stft(x, awin_t, int(fsize), int(fshift), int(fftsize), bool(perfectrec))
-    dr, di = br - sr, bi - si
-    num = torch.sum(sr * sr + si * si, dim=(-2, -1))
-    den = torch.sum(dr * dr + di * di, dim=(-2, -1))
-    return 10.0 * (torch.log10(num) - torch.log10(den))
+    fn = _consistency_blocked if sr.shape[-2] > CONSISTENCY_BLOCK else _consistency
+    return fn(sr, si, awin_t, swin_t, int(fsize), int(fshift), int(fftsize), bool(perfectrec))
 
 
 def get_consistency(S, fsize, fshift, awin, swin, fftsize=None,

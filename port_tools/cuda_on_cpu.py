@@ -13,7 +13,9 @@ then launch it on CPU tensors, and the results are held against the plain
 versions in float32 at small shapes; the online kernels are also built in
 double and held to the plain versions in float64, and the chunked one (K4),
 chunked at (7, 1, rest) plus a drain chunk, to the whole-stage one (K3) bit
-for bit. Agreement shows the kernel's indexing,
+for bit. The grouped sweep kernel (K5) is held to its plain group update at
+micro 2, 3 and 4 (float32, and float64 in the double build); at micro = 1
+its wrapper launches K1. Agreement shows the kernel's indexing,
 barriers and host arguments compute what the plain version computes; only
 the card shows that nvcc builds it and that it is fast (chip_smoke.py).
 A barrier that not every thread reaches hangs: run under `timeout`.
@@ -39,6 +41,7 @@ import lws_torch  # noqa: E402
 from lws_torch.ops import _build  # noqa: E402
 from lws_torch.ops import lws_sweeps as sweeps_mod  # noqa: E402
 from lws_torch.ops import online as online_mod  # noqa: E402
+from lws_torch.ops import packed as packed_mod  # noqa: E402
 
 SHIM = r"""
 #pragma once
@@ -175,6 +178,25 @@ def chunk_float64(lib, sr, si, state, means, st_la, st_ai, st_af, thresholds, n_
                                       state.seen, n_live, None)
     assert err == 0, err
     return out_r, out_i, online_mod.ChunkState(*outs, state.seen + N)
+
+
+def grouped_float64(lib, sr, si, st, thresholds, micro, inner_passes):
+    """K5 built in double, launched at micro > 1 (jacobi passes) on float64
+    tensors with the wrapper's own padded state and schedule."""
+    B, T, F = sr.shape
+    Q1 = st.Q - 1
+    amp, thr, live = sweeps_mod.sweep_schedule(sr, si, thresholds)
+    xr = torch.cat([sr[:, :1].expand(B, Q1, F), sr, sr[:, -1:].expand(B, Q1, F)], 1)
+    xi = torch.cat([si[:, :1].expand(B, Q1, F), si, si[:, -1:].expand(B, Q1, F)], 1)
+    xr, xi, thr = xr.contiguous(), xi.contiguous(), thr.contiguous()
+    lib.lws_packed_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    ptrs = [t.data_ptr() for t in (xr, xi, amp, st.Wr, st.Wi, thr, live)]
+    passes = max(1, inner_passes) if st.has_centre else 1
+    err = lib.lws_packed_launch(*ptrs, B, T, F, st.Q, st.L, thresholds.shape[0], micro,
+                                passes, int(st.has_centre), None)
+    assert err == 0, err
+    return xr[:, Q1:Q1 + T], xi[:, Q1:Q1 + T]
 
 
 def chunked(step, sr, si, proc, thr, fixed_mean):
@@ -323,7 +345,44 @@ def main():
                 f"float64 chunked online LWS({fsize}, {fshift}) LA={la} {proc.inner_scheme}",
                 k, p, A), report("  its final state", kst[:2], pst[:2], A))
         print(f"worst float64 {worst64:.3e}")
-        ok = worst < 2e-3 and worst_chunk < 2e-3 and k3_equal and worst64 < 1e-9
+
+        # K5: the grouped sweeps against the plain group update
+        worst_k5 = 0.0
+        dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-2:],
+                             dtype=torch.float32)
+        nofuture = torch.tensor(lws_torch.get_thresholds(1, 1, 0.1, 1), dtype=torch.float32)
+        for fsize, fshift in ((512, 128), (256, 128), (512 + 64, 128)):
+            proc = lws_torch.LWS(fsize, fshift, device="cpu")
+            A, sr, si = random_phase(proc, 23, rng)
+            for st, ip, scheme, th in ((proc._st_batch, proc.batch_inner_passes,
+                                        proc.inner_scheme, dense),
+                                       (proc._st_nofuture, 1, "jacobi", nofuture)):
+                for micro in (2, 3, 4):
+                    k = packed_mod._launch(sr, si, st, th, micro, ip, scheme)
+                    p = packed_mod.packed_lws_sweeps(sr, si, st, th, micro, ip, scheme,
+                                                     backend="torch")
+                    worst_k5 = max(worst_k5, report(
+                        f"grouped LWS({fsize}, {fshift}) "
+                        f"{'batch' if st is proc._st_batch else 'no-future'} {scheme} "
+                        f"passes={ip} micro={micro}", k, p, A))
+        print(f"worst float32 grouped {worst_k5:.3e}")
+        lib_sw64 = build_cpu("lws_sweeps", out, "double")
+        worst_k5_64 = 0.0
+        for fsize, fshift in ((512, 128), (256, 128)):
+            proc = lws_torch.LWS(fsize, fshift, device="cpu", dtype=torch.float64)
+            A, sr, si = random_phase(proc, 23, rng)
+            sr, si = sr.double(), si.double()
+            st = proc._st_batch
+            thr64 = dense.double()
+            for micro in (2, 4):
+                k = grouped_float64(lib_sw64, sr, si, st, thr64, micro, proc.batch_inner_passes)
+                p = packed_mod.packed_lws_sweeps(sr, si, st, thr64, micro,
+                                                 proc.batch_inner_passes, proc.inner_scheme)
+                worst_k5_64 = max(worst_k5_64, report(
+                    f"float64 grouped LWS({fsize}, {fshift}) micro={micro}", k, p, A))
+        print(f"worst float64 grouped {worst_k5_64:.3e}")
+        ok = (worst < 2e-3 and worst_chunk < 2e-3 and k3_equal and worst64 < 1e-9
+              and worst_k5 < 2e-3 and worst_k5_64 < 1e-9)
         return 0 if ok else 1
 
 

@@ -27,7 +27,14 @@ Sections (all by default):
           x 5 s at 16 kHz, seed 5) pushed in 0.5 s chunks, then flush:
           consistency of the committed spectrogram (mean and per stream),
           committed frame counts and wall times. chip_smoke.py's
-          STREAM_JAX_DB floor is lws_tpu's mean here.
+          STREAM_JAX_DB floor is lws_tpu's mean here;
+  longform  lws_tpu.LWS(4096, 1024) and the port's plain version
+          (device="cpu"), float32, batch_lws (100 sweeps, alpha=100) on the
+          first LONG_PREFIX_SECONDS of chip_smoke.py's longform signal
+          (bench.py::bench_longform: one 630 s stream at 48 kHz, seed 4):
+          consistency of |X| and of the result, and wall times.
+          chip_smoke.py's LONG_JAX_DB floor is lws_tpu's result here.
+          Several minutes.
 """
 from __future__ import annotations
 
@@ -50,6 +57,12 @@ import torch  # noqa: E402
 import lws_torch  # noqa: E402
 import lws_tpu  # noqa: E402
 from chip_smoke import (  # noqa: E402
+    LONG_FSHIFT,
+    LONG_FSIZE,
+    LONG_PREFIX_SECONDS,
+    LONG_RATE,
+    LONG_SECONDS,
+    LONG_SEED,
     MUSIC_B,
     MUSIC_SECONDS,
     MUSIC_SEED,
@@ -179,9 +192,26 @@ def stream():
               f"{np.round(c, 4).tolist()}; {wall:.1f} s", flush=True)
 
 
+def longform():
+    x = make_batch(1, int(LONG_SECONDS * LONG_RATE), LONG_RATE,
+                   np.random.default_rng(LONG_SEED))[:, :int(LONG_PREFIX_SECONDS * LONG_RATE)]
+    j = lws_tpu.LWS(LONG_FSIZE, LONG_FSHIFT, dtype=jnp.float32)
+    t = lws_torch.LWS(LONG_FSIZE, LONG_FSHIFT, device="cpu")
+    A = np.abs(t.stft(x)).astype(np.complex64)  # float32 magnitudes, fed to both
+    print(f"longform: LWS({LONG_FSIZE}, {LONG_FSHIFT}) batch_lws on the first "
+          f"{LONG_PREFIX_SECONDS:g} s, |X| {A.shape}; consistency of |X| "
+          f"{float(np.asarray(t.get_consistency(A))[0]):.4f} dB", flush=True)
+    for label, proc in (("lws_tpu", j), ("port plain", t)):
+        t0 = time.perf_counter()
+        out = np.asarray(proc.batch_lws(A))
+        wall = time.perf_counter() - t0
+        c = float(np.asarray(proc.get_consistency(out))[0])
+        print(f"  {label}: consistency {c:.4f} dB; {wall:.1f} s", flush=True)
+
+
 def main(argv):
     sections = {"scan": scan, "sparse": sparse, "sparse32": sparse32, "music": music,
-                "stream": stream}
+                "stream": stream, "longform": longform}
     for name in argv or list(sections):
         sections[name]()
 

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card (the sweep kernel, the online kernel, the
+"""The CUDA kernels on the card (the sweep kernel, the grouped sweep
+kernel, the segmented sweeps over the sweep kernel, the online kernel, the
 chunked online kernel and the stream around it), against their plain
 PyTorch versions.
 
@@ -17,6 +18,8 @@ import torch
 import lws_torch
 from lws_torch.ops import lws_sweeps as sweeps_mod
 from lws_torch.ops import online as online_mod
+from lws_torch.ops import packed as packed_mod
+from lws_torch.ops import segmented as seg_mod
 
 # max |kernel - plain| / max amp from a random-phase start on bench.py's
 # mixture class (chip_smoke.py's TOL_CASE: the two sum their taps in
@@ -269,3 +272,75 @@ def test_stream_on_cuda_emit_and_plain(cuda_device):
     out = lws_torch.StreamingLWS(own64, backend="torch", block_frames=4).push(x[0, :2000])
     # 12 frames fit 2000 samples; the first LA=3 fill the look-ahead
     assert out.shape == ((12 - 3) * 128,) and np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fsize,stage", [(512, "batch"), (512, "nofuture"), (256, "batch")])
+def test_grouped_kernel_matches_plain_and_k1(cuda_device, fsize, stage):
+    """K5 at micro 2 and 4 against its plain group update (3 dense sweeps,
+    or the no-future schedule), one launch each; at micro = 1 the wrapper
+    launches K1 once and equals it bit for bit."""
+    own = lws_torch.LWS(fsize, 128, device=cuda_device)
+    st = own._st_batch if stage == "batch" else own._st_nofuture
+    ip = own.batch_inner_passes if stage == "batch" else 1
+    scheme = own.inner_scheme if stage == "batch" else "jacobi"
+    A, sr, si = _random_phase(own, 101, cuda_device, seed=7)
+    sched = ((100, 100, 0.1, 1) if stage == "batch" else (1, 1, 0.1, 1))
+    thr = torch.tensor(lws_torch.get_thresholds(*sched)[-3:], dtype=torch.float32,
+                       device=cuda_device)
+    k1 = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, scheme)
+    for micro in (1, 2, 4):
+        before = packed_mod.LAUNCHES, sweeps_mod.LAUNCHES
+        kr, ki = packed_mod.packed_lws_sweeps(sr, si, st, thr, micro, ip, scheme)
+        assert (packed_mod.LAUNCHES, sweeps_mod.LAUNCHES) == (
+            before[0] + (micro > 1), before[1] + (micro == 1))
+        pr, pi = packed_mod.packed_lws_sweeps(sr, si, st, thr, micro, ip, scheme,
+                                              backend="torch")
+        err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+        assert err <= TOL * A.max(), (micro, err)
+        if micro == 1:
+            assert torch.equal(kr, k1[0]) and torch.equal(ki, k1[1])
+
+
+@pytest.mark.cuda
+def test_segmented_kernel_matches_plain(cuda_device):
+    """K2 on the kernel against K2 on the plain sweeps: two utterances in 4
+    segments, an exchange every 2 sweeps over 5 sweeps (3 K1 launches)."""
+    own = lws_torch.LWS(512, 128, device=cuda_device)
+    A, sr, si = _random_phase(own, 150, cuda_device, seed=8)
+    thr = torch.tensor(lws_torch.get_thresholds(5, 1, 0.1, 1), dtype=torch.float32,
+                       device=cuda_device)
+    kw = dict(segments=4, sweeps_per_exchange=2, inner_passes=own.batch_inner_passes,
+              inner_scheme=own.inner_scheme)
+    before = sweeps_mod.LAUNCHES
+    kr, ki = seg_mod.segmented_lws_sweeps(sr, si, own._st_batch, thr, **kw)
+    assert sweeps_mod.LAUNCHES == before + 3
+    pr, pi = seg_mod.segmented_lws_sweeps(sr, si, own._st_batch, thr, backend="torch", **kw)
+    err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+    assert err <= TOL * A.max(), err
+
+
+@pytest.mark.cuda
+def test_long_input_plan_on_cuda(cuda_device):
+    """The processor on the card plans S from the SM count: with the floor
+    lowered to 32 frames, 203 frames run as 6 segments (one K1 launch per
+    exchange block), and backend="torch" on the card plans the same S, so
+    the two agree by consistency; auto_segment=False runs one launch."""
+    t = np.arange(200 * 128) / 16000.0
+    x = (0.5 * np.sin(2 * np.pi * 440 * t) + 0.2 * np.sin(2 * np.pi * (300 + 3000 * t) * t)
+         ).astype(np.float32)
+    procs = [lws_torch.LWS(512, 128, device=cuda_device, **kw)
+             for kw in ({}, {"backend": "torch"}, {"auto_segment": False})]
+    for p in procs:
+        p._SEG_MIN_FRAMES = 32
+    X = procs[0].stft(x)
+    assert [p._auto_segments(1, X.shape[-2]) for p in procs] == [6, 6, 1]
+    outs = []
+    blocks = -(-30 // procs[0]._SWEEPS_PER_EXCHANGE)
+    for p, launches in zip(procs, (blocks, 0, 1)):
+        before = sweeps_mod.LAUNCHES
+        outs.append(p.batch_lws(np.abs(X), iterations=30))
+        assert sweeps_mod.LAUNCHES == before + launches
+        np.testing.assert_allclose(np.abs(outs[-1]), np.abs(X), rtol=1e-5, atol=1e-6)
+    c = [float(procs[0].get_consistency(o)) for o in outs]
+    assert abs(c[0] - c[1]) <= 0.1, c

@@ -124,7 +124,7 @@ def test_unported_paths_raise_with_roadmap_item(golden_q4):
 def test_import_leaves_out_jax_and_lws_tpu():
     code = ("import sys, lws_torch, lws_torch.ops, lws_torch.convert, lws_torch.functional, "
             "lws_torch.entry, lws_torch.core.online, lws_torch.ops.online, lws_torch.streaming, "
-            "chip_smoke; "
+            "lws_torch.ops.segmented, lws_torch.ops.packed, chip_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lws_tpu')); print(bad); sys.exit(1 if bad else 0)")
     import os

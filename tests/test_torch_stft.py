@@ -8,7 +8,7 @@ import jax.numpy as jnp
 
 import lws_torch
 import lws_tpu
-from lws_torch.stft import CONSISTENCY_BLOCK, frame_signal, overlap_add
+from lws_torch.stft import CONSISTENCY_BLOCK, LONGFORM_BLOCK, frame_signal, overlap_add
 
 # One torch thread: these small CPU ops gain nothing from more, and idle
 # OpenMP threads spinning beside the other test processes slow them all.
@@ -98,10 +98,30 @@ def test_frame_signal_overlap_add_roundtrip():
         np.testing.assert_allclose(y, x * cover, rtol=1e-12, atol=1e-12)
 
 
-def test_long_inputs_raise_not_ported():
+def test_long_inputs_take_the_blocked_paths():
+    """Past CONSISTENCY_BLOCK frames the consistency metric, past
+    LONGFORM_BLOCK the stft and istft switch to the blocked paths on their
+    own (lws_tpu's limits), and agree with the one-shot functions (float64,
+    a 5-bin spectrum to stay small)."""
+    import importlib
+
     import torch
-    sr = torch.zeros((CONSISTENCY_BLOCK + 1, 5), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="A8"):
-        lws_torch.get_consistency_ri(sr, sr, 8, 4, np.ones(8), np.ones(8))
+    mod = importlib.import_module("lws_torch.stft")  # lws_torch.stft is the function
+    rng = np.random.default_rng(3)
+    fsize, fshift = 8, 4
+    awin = np.hanning(fsize)
+    swin = lws_torch.synthwin(awin, fshift)
+    sr, si = (torch.tensor(rng.standard_normal((CONSISTENCY_BLOCK + 1, 5))) for _ in range(2))
+    c = lws_torch.get_consistency_ri(sr, si, fsize, fshift, awin, swin, perfectrec=True)
+    c1 = mod._consistency(sr, si, torch.tensor(awin), torch.tensor(swin), fsize, fshift,
+                          fsize, True)
+    np.testing.assert_allclose(c.numpy(), c1.numpy(), rtol=0, atol=1e-9)
+    x = torch.tensor(rng.standard_normal(fshift * (LONGFORM_BLOCK + 1)))
+    br, bi = lws_torch.stft_ri(x, fsize, fshift, awin, perfectrec=True)
+    assert br.shape[-2] > LONGFORM_BLOCK
+    o = mod._stft(x, torch.tensor(awin), fsize, fshift, fsize, True)
+    assert torch.equal(br, o[0]) and torch.equal(bi, o[1])
+    y = lws_torch.istft_ri(br, bi, fshift, awin, awin=awin, perfectrec=True)
+    np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=0, atol=1e-10)
     with pytest.raises(ValueError, match="non-negative"):
         lws_torch.istft_ri(sr[:, :4], sr[:, :4], 4, np.ones(8))
