@@ -8,11 +8,15 @@ Phases, in order:
   1. the card: torch's device name, and nvidia-smi's name and power limit;
   2. the build of every kernel from lws_torch/csrc, one nvcc per source, all
      started together (timed, with the ptxas register / shared-memory
-     report);
+     report), and the sweep kernel's launch plan as the built library
+     computes it against its Python mirror (ops.lws_sweeps.sweep_plan);
   3. each kernel against its plain version on the card, same float32
      inputs made from a numpy seed, at the paths' shapes: the sweep kernel
-     (cases a-d at F=257 / 129, h at F=513, where its weights do not fit
-     shared memory), the online kernel (cases e-g) and the chunked online
+     (cases a-d at F=257 / 129, h at F=513, where its weights do not all fit
+     shared memory, l at Q=32 on the run-time path), the free function
+     batch_lws on a complex128 spectrogram (float32 kernels, complex64
+     out, against backend="torch" in float64), the online kernel (cases
+     e-g) and the chunked online
      kernel (case i: chunked, against the online kernel bit for bit; case
      j: against its plain version, with the running mean), and the grouped
      sweep kernel K5 (cases k: micro 2 and 4 against the plain group
@@ -51,6 +55,12 @@ Phases, in order:
      result on the 20 s prefix;
   8. the kernels line (JSON), then the result line (JSON) last.
 
+Every timed sweep-kernel (K1) run (the batch path, the music path's batch
+stage, the longform path and its case (a)) prints its microseconds per
+barrier step and per frame, its launch plan (threads, bins per thread,
+the shared-memory window ring, tap planes staged, bytes) and the ptxas
+registers and spills of the kernel the plan picks.
+
 Exits non-zero, before any result line, without CUDA, without the repo's
 lws_torch beside this file, or when any phase fails. Imports nothing of
 jax or lws_tpu.
@@ -59,6 +69,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +150,10 @@ TOL_SEAM_DB = 0.1
 DEVICE = "cuda"
 MAIN_B, MAIN_SECONDS, SAMPLE_RATE, MAIN_SWEEPS = 32, 5.0, 16000, 100
 CASE_B = 4
+Q32_FRAMES = 1000
+# The free function on complex128 input: 2 utterances of 2 s, 30 sweeps
+# (the plain float64 version runs on the card beside the kernel).
+FREE_SECONDS, FREE_SWEEPS = 2.0, 30
 # The music path: bench.py's pipeline workload (bench.py:137-160).
 MUSIC_B, MUSIC_SECONDS, MUSIC_SEED = 32, 5.0, 1
 # The streaming path: bench.py's streaming workload (bench.py:235-354), 8
@@ -186,7 +201,30 @@ def card_lines(torch):
 KERNELS = ("lws_sweeps", "lws_online")  # sources: K1 and K5; K3 and K4
 
 
-def build_phase():
+def ptxas_report(text):
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    from an `nvcc -Xptxas -v` log."""
+    out, entry, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            out.setdefault(entry, {})
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and props:
+            out.setdefault(props, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def build_phase(s, sweeps_mod):
+    """Phase 2. Returns the ptxas report of lws_sweeps.cu."""
     from lws_torch.ops import _build
     t0 = time.time()
     paths = _build.build_all(KERNELS)
@@ -199,6 +237,57 @@ def build_phase():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
+    differ = [(F, Q, L) for F in (129, 257, 289, 513, 1025, 2049, 3073)
+              for Q, L in ((4, 5), (2, 5), (5, 5), (16, 5), (32, 3))
+              if sweeps_mod.kernel_plan(F, Q, L) != sweeps_mod.sweep_plan(F, Q, L)]
+    s.check(not differ, f"sweep kernel launch plan, built library vs Python mirror, 35 "
+            f"geometries: {'equal' if not differ else f'differ at {differ}'}")
+    return ptxas_report(paths["lws_sweeps"].with_suffix(".log").read_text())
+
+
+def k1_template(plan, Q):
+    """The template arguments (KQ, KL, KNB, kRing, kAllStaged) of the
+    lws_sweeps_kernel the launch plan picks (csrc/lws_sweeps.cu
+    pick_kernel)."""
+    if plan.fixed:
+        return (Q, 5, plan.bins, 1, int(plan.bins == 1 and plan.staged == plan.taps))
+    if not plan.ring:
+        return (0, 0, 0, 0, 0)
+    return (0, 0, 1 if plan.bins == 1 else 0, 1, 0)
+
+
+def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes):
+    """Print a K1 run's microseconds per barrier step and per frame
+    (`frames` serial frames per CTA, 1 + passes steps each, 1 without centre
+    taps), its launch plan and its kernel's registers and spills; return
+    them for the kernels line."""
+    plan = sweeps_mod.sweep_plan(F, st.Q, st.L)
+    args = k1_template(plan, st.Q)
+    key = "lws_sweeps_kernelI" + "".join(
+        f"L{'i' if i < 3 else 'b'}{v}E" for i, v in enumerate(args))
+    found = [v for k, v in ptxas.items() if key in k]
+    regs = found[0] if found else {}
+    steps = frames * (1 + passes if st.has_centre else 1)
+    us_step, us_frame = 1e3 * ms / steps, 1e3 * ms / frames
+    # weights one CTA reads from device memory (L2) per frame: the rows of
+    # taps not staged, the centre row once per pass (8 bytes per tap and bin)
+    K, rows = 2 * st.L + 1, plan.staged // (2 * st.L + 1)
+    off_rows = 2 * st.Q - 2 - max(0, rows - 1)
+    w_bytes = 8 * F * K * (off_rows + (passes if rows == 0 and st.has_centre else 0))
+    print(f"  K1 {label}: {ms:.2f} ms, {frames} frames x {steps // frames} steps per CTA -> "
+          f"{us_step:.3f} us per step, {us_frame:.3f} us per frame; plan: {plan.threads} "
+          f"threads x {plan.bins} bins, window ring in shared memory {plan.ring}, "
+          f"{plan.staged}/{plan.taps} tap planes staged, {plan.bytes} B; weights from device "
+          f"memory {w_bytes} B per frame per CTA ({w_bytes / (1e3 * us_frame):.2f} GB/s "
+          f"achieved); kernel lws_sweeps_kernel<{', '.join(map(str, args))}>: "
+          f"{regs.get('registers')} registers, spill stores {regs.get('spill_stores')} B, "
+          f"loads {regs.get('spill_loads')} B")
+    return dict(us_per_step=us_step, us_per_frame=us_frame, frames_per_cta=frames,
+                threads=plan.threads, bins_per_thread=plan.bins, ring=plan.ring,
+                taps_staged=plan.staged, taps=plan.taps, smem_bytes=plan.bytes,
+                weight_bytes_per_frame=w_bytes, kernel=list(args),
+                registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
+                spill_loads=regs.get("spill_loads"))
 
 
 def kernel_cases(s, torch, lws_torch, sweeps_mod):
@@ -219,7 +308,10 @@ def kernel_cases(s, torch, lws_torch, sweeps_mod):
     q4 = lws_torch.LWS(512, 128, device=dev)
     q2 = lws_torch.LWS(256, 128, device=dev)
     wide = lws_torch.LWS(1024, 256, device=dev)
+    q32 = lws_torch.LWS(256, 8, L=3, device=dev)  # Q=32: tests/test_oracle.py's geometry
     in4, in2, in_wide = random_phase(q4), random_phase(q2), random_phase(wide)
+    # the first 0.5 s (1000 frames at hop 8), which keeps the plain version short
+    in32 = tuple(t[:, :Q32_FRAMES].contiguous() for t in random_phase(q32))
     B, _, F = in4[2].shape
     Q1, scale = q4._Qi - 1, float(in4[2].mean())
     halo = tuple(torch.as_tensor(rng.standard_normal((B, Q1, F)) * scale,
@@ -234,9 +326,11 @@ def kernel_cases(s, torch, lws_torch, sweeps_mod):
          (q2._st_batch, q2.batch_inner_passes, q2.inner_scheme), dense, {}),
         ("d case a with halo= and mean_amp=", in4, batch4, dense,
          dict(halo=halo, mean_amp=mean)),
-        ("h LWS(1024, 256) F=513 batch Q=4 ip3 jacobi (weights read from device "
-         "memory), 3 live sweeps", in_wide,
+        ("h LWS(1024, 256) F=513 batch Q=4 ip3 jacobi (weights partly read from "
+         "device memory), 3 live sweeps", in_wide,
          (wide._st_batch, wide.batch_inner_passes, wide.inner_scheme), dense, {}),
+        ("l LWS(256, 8, L=3) F=129 batch Q=32 (the run-time path), 3 live sweeps", in32,
+         (q32._st_batch, q32.batch_inner_passes, q32.inner_scheme), dense, {}),
     ]
     worst = 0.0
     for name, (r0, i0, amp), (st, ip, scheme), thr, kw in cases:
@@ -253,6 +347,33 @@ def kernel_cases(s, torch, lws_torch, sweeps_mod):
                 f"case {name} {tuple(r0.shape)}, {n_live} live (utterance, sweep) pairs: "
                 f"max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g})")
     return worst
+
+
+def free_function_case(s, torch, lws_torch, sweeps_mod):
+    """Phase 3, the free function batch_lws on a complex128 spectrogram (numpy's
+    default) on the card: backend="auto" runs the float32 kernel and returns
+    complex64, backend="torch" the plain version in float64 (complex128);
+    their consistency agrees within TOL_PLAIN_DB. One jacobi pass per frame,
+    as the free functions run; FREE_SWEEPS sweeps on 2 x FREE_SECONDS s."""
+    rng = np.random.default_rng(8)
+    x = make_batch(2, int(FREE_SECONDS * SAMPLE_RATE), SAMPLE_RATE, rng)
+    proc = lws_torch.LWS(512, 128, device=DEVICE)
+    S = np.abs(proc.stft(x)).astype(np.complex128)
+    thr = lws_torch.get_thresholds(FREE_SWEEPS, 100, 0.1, 1)
+    before = sweeps_mod.LAUNCHES
+    out = lws_torch.batch_lws(S, proc.W, thr)
+    launched = sweeps_mod.LAUNCHES - before
+    ref = lws_torch.batch_lws(S, proc.W, thr, backend="torch")
+    c_out, c_ref = proc.get_consistency(out), proc.get_consistency(ref)
+    d = float(np.abs(c_out - c_ref).max())
+    s.check(out.dtype == np.complex64 and ref.dtype == np.complex128
+            and out.shape == S.shape and bool(np.isfinite(out).all()) and launched == 1,
+            f"free batch_lws on complex128 {S.shape}: backend='auto' -> {out.dtype} through "
+            f"{launched} kernel launch, backend='torch' -> {ref.dtype}, finite")
+    s.check(d <= TOL_PLAIN_DB,
+            f"free batch_lws complex128, {FREE_SWEEPS} sweeps: consistency {float(c_out.mean()):.4f} "
+            f"dB (float32 kernel) vs {float(c_ref.mean()):.4f} dB (float64 plain): max "
+            f"{d:.4f} dB (tol {TOL_PLAIN_DB})")
 
 
 def online_cases(s, torch, lws_torch, online_mod):
@@ -572,7 +693,7 @@ def online_bound(proc, online_mod, T, F, B, iters, frames=None, launches=None):
             flops, nbytes, sum(updates.values()))
 
 
-def music_path(s, torch, lws_torch, sweeps_mod, online_mod):
+def music_path(s, torch, lws_torch, sweeps_mod, online_mod, ptxas):
     """Phase 5. Returns the kernels-line entry for lws_online and the
     music-path numbers of lws_sweeps."""
     dev = torch.device(DEVICE)
@@ -683,6 +804,8 @@ def music_path(s, torch, lws_torch, sweeps_mod, online_mod):
     print(f"  batch-stage sweep kernel (F={F}) {b_ms:.2f} ms, bound {b_bound:.4f} ms by "
           f"{b_by} ({b_flops:.4g} flop), {b_serial} serial steps per CTA -> "
           f"{1e3 * b_ms / b_serial:.3f} us per step")
+    b_plan = k1_report("music batch stage", sweeps_mod, ptxas, st, int(F), b_ms,
+                       int(live.sum(dim=1).max()) * int(T), ip)
 
     # the whole path against the plain version on utterances 0-1
     plain_proc = lws_torch.LWS(1024, 256, mode="music", device=dev, backend="torch")
@@ -709,7 +832,8 @@ def music_path(s, torch, lws_torch, sweeps_mod, online_mod):
         shape=[B, int(T), int(F)], rounds=proc.online_iterations,
         look_ahead=proc.look_ahead, row_updates=updates)
     music_sweeps = dict(launches=launches["lws_sweeps"], batch_stage_ms=b_ms,
-                        batch_stage_bound_ms=b_bound, shape=[B, int(T), int(F)],
+                        batch_stage_bound_ms=b_bound, batch_stage_plan=b_plan,
+                        shape=[B, int(T), int(F)],
                         run_lws_ms=1e3 * wall, audio_s_per_s=B * secs / wall,
                         consistency_db=float(c_out.mean()))
     return online_entry, music_sweeps
@@ -916,7 +1040,7 @@ def stream_path(s, torch, lws_torch, online_mod):
                 audio_s_per_s=B * secs / wall, consistency_db=float(c.mean()), latency=lat)
 
 
-def main_path(s, torch, lws_torch, sweeps_mod):
+def main_path(s, torch, lws_torch, sweeps_mod, ptxas):
     """Phase 4. Returns lws_sweeps' numbers on the batch path's run."""
     dev = torch.device(DEVICE)
     B, secs, sr_hz, iters = MAIN_B, MAIN_SECONDS, SAMPLE_RATE, MAIN_SWEEPS
@@ -996,12 +1120,14 @@ def main_path(s, torch, lws_torch, sweeps_mod):
           f"{bound_by} ({flops:.4g} flop, {nbytes:.4g} B, live sweeps per utterance "
           f"{int(live.sum(dim=1).min())}-{int(live.sum(dim=1).max())}), "
           f"serial barrier steps per CTA {serial} -> {1e3 * ms / serial:.3f} us per step")
+    plan = k1_report("batch path", sweeps_mod, ptxas, st, int(F), ms,
+                     int(live.sum(dim=1).max()) * int(T), ip)
     return dict(launches=launches, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, shape=[B, int(T), int(F)], sweeps=iters,
-                live_sweeps=int(live.sum()), serial_steps=serial)
+                live_sweeps=int(live.sum()), serial_steps=serial, plan=plan)
 
 
-def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod):
+def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod, ptxas):
     """Phase 7. Returns the longform numbers of lws_sweeps (K1 under the
     segmented sweeps, K2)."""
     dev = torch.device(DEVICE)
@@ -1053,6 +1179,8 @@ def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod):
           f"{int(live.sum(dim=1).min())}-{int(live.sum(dim=1).max())}) -> "
           f"{1e3 * k1_ms / steps:.3f} us per step; bound {bound_ms:.4f} ms by {bound_by} "
           f"({flops:.4g} flop; {nbytes:.4g} B would take {1e3 * nbytes / PEAK_BYTES_S:.4f} ms)")
+    plan = k1_report("longform path", sweeps_mod, ptxas, st, int(F), k1_ms,
+                     int(live.sum(dim=1).max()) * Tseg, ip)
     mag_rel = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - amp).abs()
                      / amp.clamp_min(1e-30)).max())
     s.check(mag_rel <= TOL_MAGNITUDE,
@@ -1095,6 +1223,9 @@ def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod):
             f"segments, exchange every 5, 12 sweeps alpha=1, {a_launches} K1 launches: "
             f"max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g}); kernel {a_ms:.2f} ms, plain "
             f"{a_plain_ms:.1f} ms")
+    a_plan = k1_report("case (a), F=2049, 4 segments (K2's wall, exchanges included)",
+                       sweeps_mod, ptxas, st, int(F), a_ms,
+                       int(a_live.sum(dim=1).max()) * -(-int(r0.shape[-2]) // 4), ip)
 
     # (b) the seams: the plan's S against one segment, 120 s prefix
     whole = lws_torch.LWS(LONG_FSIZE, LONG_FSHIFT, device=dev, auto_segment=False)
@@ -1131,9 +1262,10 @@ def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod):
                 sweeps=MAIN_SWEEPS, segments=S, sweeps_per_exchange=proc._SWEEPS_PER_EXCHANGE,
                 wall_ms=1e3 * wall, audio_s_per_s=LONG_SECONDS / wall, consistency_db=c1,
                 consistency_in_db=c0,
+                plan=plan,
                 case_a=dict(shape=[1, int(r0.shape[-2]), int(F)], segments=4, sweeps=12,
                             launches=a_launches, ms=a_ms, plain_ms=a_plain_ms,
-                            bound_ms=a_bound, max_abs_err=d),
+                            bound_ms=a_bound, max_abs_err=d, plan=a_plan),
                 seams_db=res["plan"][0], one_segment_db=res["one segment"][0],
                 seams_ms=1e3 * res["plan"][1], one_segment_ms=1e3 * res["one segment"][1],
                 floor_db=c_floor)
@@ -1154,16 +1286,18 @@ def main():
 
     s = Smoke(torch)
     card_lines(torch)
-    build_phase()
+    ptxas = build_phase(s, sweeps_mod)
     worst = kernel_cases(s, torch, lws_torch, sweeps_mod)
+    free_function_case(s, torch, lws_torch, sweeps_mod)
     worst_online = online_cases(s, torch, lws_torch, online_mod)
     worst_chunk = chunk_cases(s, torch, lws_torch, online_mod)
     worst_packed = packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod)
-    batch_sweeps = main_path(s, torch, lws_torch, sweeps_mod)
+    batch_sweeps = main_path(s, torch, lws_torch, sweeps_mod, ptxas)
     packed_entry = packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod)
-    online_entry, music_sweeps = music_path(s, torch, lws_torch, sweeps_mod, online_mod)
+    online_entry, music_sweeps = music_path(s, torch, lws_torch, sweeps_mod, online_mod,
+                                            ptxas)
     chunk_entry = stream_path(s, torch, lws_torch, online_mod)
-    longform = longform_path(s, torch, lws_torch, sweeps_mod, seg_mod)
+    longform = longform_path(s, torch, lws_torch, sweeps_mod, seg_mod, ptxas)
     # K1: the longform path's run (this slice's path) at the top; the batch
     # path's run and the music path's batch stage nested, each from its own
     # run

@@ -14,13 +14,17 @@ carried over and raise. The wrapper
     as the JAX package does outside its pallas_call;
   - launches the kernel once for all sweeps and counts the launch.
 
-CPU tensors, and backend="torch", take the plain version
+`sweep_plan` mirrors the kernel's launch plan (bins per thread, threads,
+the shared-memory window ring, the tap planes staged in shared memory,
+bytes; csrc/lws_sweeps.cu::sweep_plan): any Q and L whose plan fits one
+block run. CPU tensors, and backend="torch", take the plain version
 (lws_torch.core.batch.lws_sweeps). A CUDA tensor the kernel does not take
-(float64, Q > MAX_Q, ...) raises; nothing falls back.
+(float64, a plan past 227 KB of shared memory) raises; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -28,15 +32,68 @@ from ..core.batch import lws_sweeps as plain_lws_sweeps
 from ..core.stencil import Stencil, _parse_colors
 from . import _build
 
-__all__ = ["tiled_lws_sweeps", "sweep_schedule", "MAX_Q", "LAUNCHES"]
+__all__ = ["tiled_lws_sweeps", "sweep_schedule", "sweep_plan", "SweepPlan", "MAX_Q",
+           "LAUNCHES"]
 
-# Largest overlap factor the kernel takes (the JAX kernels' MAX_Q).
+# Largest overlap factor of the online kernels and the grouped sweep kernel
+# K5 (the JAX kernels' MAX_Q); K1 takes any Q its shared-memory plan fits.
 MAX_Q = 16
+
+# Per-block opt-in shared memory on sm_90 (csrc/lws_common.cuh kSmemLimit).
+SMEM_LIMIT = 232448
+_MAX_THREADS = 1024
+_MAX_BINS = 16  # bins per thread of the kernel's run-time path
+_FIXED_THREADS = 768  # the compile-time kernels' launch bound
 
 # Kernel launches so far; the main path's run is read as a difference.
 LAUNCHES = 0
 
 _LIB = "lws_sweeps"
+
+
+class SweepPlan(NamedTuple):
+    """K1's launch plan for one (F, Q, L)."""
+    bins: int      # bins per thread, strided: tid, tid + threads, ...
+    threads: int   # threads per block
+    width: int     # floats per buffered row: F and L margin bins each side
+    ring: bool     # the 2Q-row window in shared memory (else read from device memory)
+    staged: int    # tap planes staged in shared memory: whole rows, centre row first
+    taps: int      # (2Q - 1)(2L + 1)
+    fixed: bool    # a compile-time kernel: (Q, L) in {(4, 5), (2, 5)}, 1-3 bins on
+                   # at most 768 threads, ring
+    bytes: int     # dynamic shared memory per block
+
+    @property
+    def fits(self) -> bool:
+        return self.bytes <= SMEM_LIMIT and self.bins <= _MAX_BINS
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sweep_plan(F: int, Q: int, L: int) -> SweepPlan:
+    """K1's launch plan (csrc/lws_sweeps.cu::sweep_plan, exported as
+    lws_sweeps_plan): bins = ceil(F / 1024) strided bins per thread on
+    round_up(ceil(F / bins), 32) threads; two ping-pong centre rows and,
+    when it fits beside them, the 2Q-row ring of the window, each row
+    (re, im) of `width` floats; then as many rows of taps (2L + 1 (re, im)
+    planes of F floats) as the rest of the 227 KB holds."""
+    F, Q, L = int(F), int(Q), int(L)
+    bins = _ceil_div(F, _MAX_THREADS)
+    threads = _ceil_div(_ceil_div(F, bins), 32) * 32
+    width = F + 2 * L
+    row = 2 * width * 4
+    pingpong, ring_b = 2 * row, 2 * Q * row
+    ring = pingpong + ring_b <= SMEM_LIMIT
+    used = pingpong + (ring_b if ring else 0)
+    K = 2 * L + 1
+    tap_plane = 2 * F * 4
+    rows = max(0, SMEM_LIMIT - used) // (K * tap_plane)
+    staged = min(2 * Q - 1, rows) * K
+    fixed = ring and L == 5 and Q in (4, 2) and bins <= 3 and threads <= _FIXED_THREADS
+    return SweepPlan(bins, threads, width, ring, staged, (2 * Q - 1) * K, fixed,
+                     used + staged * tap_plane)
 
 
 def _library():
@@ -45,6 +102,8 @@ def _library():
         lib.lws_sweeps_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         lib.lws_sweeps_launch.restype = ctypes.c_int
+        lib.lws_sweeps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lws_sweeps_plan.restype = ctypes.c_int
         lib.lws_packed_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.lws_packed_launch.restype = ctypes.c_int
@@ -130,6 +189,12 @@ def tiled_lws_sweeps(
 
 def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
     global LAUNCHES
+    plan = sweep_plan(sr.shape[-1], st.Q, st.L)
+    if not plan.fits:
+        raise ValueError(
+            f"lws_torch: the sweep kernel's shared-memory plan does not fit one block at "
+            f"F={sr.shape[-1]}, Q={st.Q}, L={st.L} ({plan.bytes} B against {SMEM_LIMIT}); "
+            "use backend='torch' for the plain version")
     out, launched = launch_padded(
         "lws_sweeps_launch", sr, si, st, thresholds, halo, mean_amp,
         _schedule_args(st, inner_passes, inner_scheme))
@@ -137,11 +202,22 @@ def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
     return out
 
 
+def kernel_plan(F: int, Q: int, L: int) -> SweepPlan:
+    """The plan the built kernel computes (lws_sweeps_plan), to hold the
+    mirror to; builds csrc/lws_sweeps.cu on first use."""
+    out = (ctypes.c_longlong * 8)()
+    _library().lws_sweeps_plan(int(F), int(Q), int(L), ctypes.addressof(out))
+    v = list(out)
+    return SweepPlan(v[0], v[1], v[2], bool(v[3]), v[4], v[5], bool(v[6]), v[7])
+
+
 def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, schedule):
     """Check the inputs, build the padded state and the schedule, and run
     csrc/lws_sweeps.cu's `entry` (lws_sweeps_launch or lws_packed_launch)
     once with `schedule` (its int arguments after `iters`). Returns the
-    output pair and whether a kernel was launched (not for zero sweeps)."""
+    output pair and whether a kernel was launched (not for zero sweeps).
+    The callers check the geometry each kernel takes (K1: sweep_plan; K5:
+    Q <= MAX_Q and packed_supported)."""
     dev = sr.device
     for name, t in (("sr", sr), ("si", si), ("st.Wr", st.Wr), ("st.Wi", st.Wi)):
         if t.dtype != torch.float32:
@@ -155,8 +231,6 @@ def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, schedule):
     Q, L = st.Q, st.L
     shape = sr.shape
     T, F = shape[-2:]
-    if not 1 <= Q <= MAX_Q:
-        raise ValueError(f"lws_torch: the sweep kernels take Q <= {MAX_Q}, got Q={Q}")
     if st.n_bins != F or tuple(st.Wr.shape) != (2 * Q - 1, 2 * L + 1, F):
         raise ValueError(f"lws_torch: stencil {tuple(st.Wr.shape)} does not fit F={F}")
     if F < L + 1:

@@ -32,7 +32,7 @@ from ..core.online import online_chunk as plain_online_chunk
 from ..core.online import rtisi_la as plain_rtisi_la
 from ..core.stencil import Stencil, _parse_colors
 from . import _build
-from .lws_sweeps import MAX_Q
+from .lws_sweeps import MAX_Q, SMEM_LIMIT
 
 __all__ = ["packed_rtisi_la", "online_chunk", "online_chunk_init", "ChunkState",
            "online_supported", "online_weight_sets", "device_weight_sets", "online_smem_bytes",
@@ -40,9 +40,6 @@ __all__ = ["packed_rtisi_la", "online_chunk", "online_chunk_init", "ChunkState",
 
 # Longest look-ahead the kernel takes (the JAX kernel's limit).
 MAX_LA = 8
-
-# Shared memory one block may use on sm_90 (the kernel's kSmemLimit).
-SMEM_LIMIT = 232448
 
 # Kernel launches so far (K3, K4); a path's run is read as a difference.
 LAUNCHES = 0

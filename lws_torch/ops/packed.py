@@ -25,15 +25,12 @@ from __future__ import annotations
 import torch
 
 from ..core.batch import packed_sweeps as plain_packed_sweeps
-from .lws_sweeps import MAX_Q, launch_padded, reject_tpu_knobs, tiled_lws_sweeps
+from .lws_sweeps import MAX_Q, SMEM_LIMIT, launch_padded, reject_tpu_knobs, tiled_lws_sweeps
 
 __all__ = ["packed_lws_sweeps", "packed_supported", "LAUNCHES"]
 
 # K5 launches so far (micro > 1); the main path's run is read as a difference.
 LAUNCHES = 0
-
-# Per-block opt-in shared memory on sm_90 (csrc/lws_common.cuh kSmemLimit).
-SMEM_LIMIT = 232448
 
 _TPU_KNOBS = dict(pack=4, storage=None, frame_unroll=1, window_carry="stack",
                   lane_skip=False, tap_chunks=1, interpret=False)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the port's CUDA kernels on the CPU, to rehearse them before a card run.
 
-    python port_tools/cuda_on_cpu.py [--build-dir DIR]
+    python port_tools/cuda_on_cpu.py [--build-dir DIR] [--old-k1 REV]
 
 Each lws_torch/csrc/*.cu is compiled by g++ (C++20) against a small shim of
 the CUDA runtime: a block runs as one std::thread per CUDA thread,
@@ -15,7 +15,16 @@ double and held to the plain versions in float64, and the chunked one (K4),
 chunked at (7, 1, rest) plus a drain chunk, to the whole-stage one (K3) bit
 for bit. The grouped sweep kernel (K5) is held to its plain group update at
 micro 2, 3 and 4 (float32, and float64 in the double build); at micro = 1
-its wrapper launches K1. Agreement shows the kernel's indexing,
+its wrapper launches K1. The sweep kernel K1 is also held bit for bit to
+its previous design (lws_sweeps.cu at git revision REV, default d38e7e7:
+one bin per thread, the window read from device memory), built the same
+way, on the cases of k1_cases(): Q = 4 ip3 jacobi, the no-future stencil,
+Q = 2 color2x3, halo= / mean_amp=, an F that is not a multiple of 32, 2
+and 3 bins per thread (F = 1025, 2049), the run-time path at Q = 5 and 16
+and with the window in device memory (F = 3073); Q = 32, which the
+previous K1 did not take, against the plain version only. Its launch plan
+(lws_sweeps_plan) is held to the Python mirror (ops.lws_sweeps.sweep_plan).
+Agreement shows the kernel's indexing,
 barriers and host arguments compute what the plain version computes; only
 the card shows that nvcc builds it and that it is fast (chip_smoke.py).
 A barrier that not every thread reaches hangs: run under `timeout`.
@@ -56,7 +65,7 @@ SHIM = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 
 struct dim3 {
   unsigned x, y, z;
@@ -109,7 +118,11 @@ LAUNCH = re.compile(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\((.*?)\);", re.DOTALL)
 def cpu_source(text: str, real: str) -> str:
     """The .cu / .cuh text rewritten for g++: every float a `real`, shared
     memory from the shim's block buffer, <<<grid, block, smem, stream>>> as
-    cpu_launch(...)."""
+    cpu_launch(...). The double build scales the shared-memory limit by
+    sizeof(double) / sizeof(float), so its launch plans, counted in
+    elements, are the float build's."""
+    if real == "double":
+        text = text.replace("kSmemLimit = 232448;", "kSmemLimit = 2 * 232448;")
     text = re.sub(r"\bfloat\b", real, text)
     text = text.replace(f"extern __shared__ {real} smem[];",
                         f"{real}* smem = reinterpret_cast<{real}*>(cpu_smem);")
@@ -117,18 +130,20 @@ def cpu_source(text: str, real: str) -> str:
                       text)
 
 
-def build_cpu(name: str, out_dir: Path, real: str = "float") -> ctypes.CDLL:
+def build_cpu(name: str, out_dir: Path, real: str = "float", csrc: Path = _build.CSRC,
+              tag: str = "") -> ctypes.CDLL:
     """g++ build of csrc/<name>.cu; real="double" builds it with every float
-    a double, to check its schedule without float32 rounding."""
-    src_dir = out_dir / real
+    a double, to check its schedule without float32 rounding. `csrc` and
+    `tag` build another copy of the sources (a previous revision)."""
+    src_dir = out_dir / (real + tag)
     shim_dir = out_dir / "shim"
     for d in (src_dir, shim_dir):
         d.mkdir(parents=True, exist_ok=True)
     (shim_dir / "cuda_runtime.h").write_text(SHIM)
-    for header in _build.CSRC.glob("*.cuh"):
+    for header in csrc.glob("*.cuh"):
         (src_dir / header.name).write_text(cpu_source(header.read_text(), real))
     src = src_dir / f"{name}.cpp"
-    src.write_text(cpu_source((_build.CSRC / f"{name}.cu").read_text(), real))
+    src.write_text(cpu_source((csrc / f"{name}.cu").read_text(), real))
     lib = src_dir / f"{name}.so"
     cmd = ["g++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread", "-ffp-contract=off",
            f"-I{shim_dir}", "-o", str(lib), str(src)]
@@ -237,6 +252,151 @@ def random_phase(proc, frames, rng, B=2):
             torch.tensor(S.imag, dtype=torch.float32))
 
 
+def old_sources(rev: str, out_dir: Path) -> Path:
+    """csrc/lws_sweeps.cu and the headers it includes at git revision `rev`,
+    written to out_dir/csrc_<rev>."""
+    dest = out_dir / f"csrc_{rev}"
+    dest.mkdir(parents=True, exist_ok=True)
+    for path in _build.sources("lws_sweeps"):
+        rel = path.relative_to(ROOT).as_posix()
+        text = subprocess.run(["git", "-C", str(ROOT), "show", f"{rev}:{rel}"],
+                              capture_output=True, text=True, check=True).stdout
+        (dest / path.name).write_text(text)
+    return dest
+
+
+def bind_sweeps(lib):
+    """The argument types ops.lws_sweeps._library() sets, on a library it
+    does not build (the previous K1 has no lws_sweeps_plan)."""
+    lib.lws_sweeps_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    lib.lws_sweeps_launch.restype = ctypes.c_int
+    lib.lws_sweeps_error_string.argtypes = [ctypes.c_int]
+    lib.lws_sweeps_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# K1's cases: (label, LWS arguments, schedule, frames, halo / mean_amp,
+# compare with the previous K1). "batch": 3 dense sweeps of the batch
+# stencil; "dead": the same with the middle sweep's threshold above every
+# bin (skipped, so the next sweep reloads the window); "nofuture": one
+# sweep of the v=-1 stencil. F = 3073 takes the run-time path with the
+# window in device memory; Q = 32 is past the previous K1's cap.
+K1_CASES = (
+    ("Q=4 ip3 jacobi F=257", dict(awin_or_fsize=512, fshift=128), "batch", 20, False, True),
+    ("no-future v=-1 F=257", dict(awin_or_fsize=512, fshift=128), "nofuture", 20, False, True),
+    ("Q=2 color2x3 F=129", dict(awin_or_fsize=256, fshift=128), "batch", 20, False, True),
+    ("Q=4 halo= mean_amp= F=257", dict(awin_or_fsize=512, fshift=128), "batch", 20, True, True),
+    ("Q=4 dead middle sweep F=257", dict(awin_or_fsize=512, fshift=128), "dead", 20, False,
+     True),
+    ("Q=4 F=513, weights partly staged", dict(awin_or_fsize=1024, fshift=256), "batch", 16,
+     False, True),
+    ("Q=5 (run-time path) F=289", dict(awin_or_fsize=576, fshift=128), "batch", 20, False, True),
+    ("Q=4 F=1025, 2 bins per thread", dict(awin_or_fsize=2048, fshift=512), "batch", 12, False,
+     True),
+    ("Q=4 F=2049, 3 bins per thread", dict(awin_or_fsize=4096, fshift=1024), "batch", 10, False,
+     True),
+    ("Q=4 no-future F=2049", dict(awin_or_fsize=4096, fshift=1024), "nofuture", 10, False, True),
+    ("Q=2 color2x3 F=2049, 3 bins per thread", dict(awin_or_fsize=4096, fshift=2048), "dead",
+     10, False, True),
+    ("Q=8 (run-time path) F=1025, 2 bins per thread", dict(awin_or_fsize=2048, fshift=256),
+     "batch", 10, False, True),
+    ("Q=16 (run-time path) F=513", dict(awin_or_fsize=1024, fshift=64), "batch", 12, True, True),
+    ("Q=4 F=3073, window in device memory", dict(awin_or_fsize=6144, fshift=1536), "batch", 8,
+     False, True),
+    ("Q=32 L=3 F=129", dict(awin_or_fsize=256, fshift=8, L=3), "batch", 20, False, False),
+)
+
+
+def sweeps_float64(lib, sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean):
+    """K1 built in double, launched on float64 tensors with the wrapper's
+    own padded state, schedule and launch arguments."""
+    B, T, F = sr.shape
+    Q1 = st.Q - 1
+    amp, thr, live = sweeps_mod.sweep_schedule(sr, si, thresholds, mean)
+    planes = []
+    for s, top, bot in ((sr, 0, 2), (si, 1, 3)):
+        edges = ((s[:, :1].expand(B, Q1, F), s[:, -1:].expand(B, Q1, F)) if halo is None
+                 else (halo[top], halo[bot]))
+        planes.append(torch.cat([edges[0], s, edges[1]], 1).contiguous())
+    lib.lws_sweeps_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+        ctypes.c_void_p]
+    ptrs = [t.data_ptr() for t in (*planes, amp, st.Wr, st.Wi, thr.contiguous(), live)]
+    sched = sweeps_mod._schedule_args(st, inner_passes, inner_scheme)
+    err = lib.lws_sweeps_launch(*ptrs, B, T, F, st.Q, st.L, thresholds.shape[0], *sched, None)
+    assert err == 0, err
+    return planes[0][:, Q1:Q1 + T], planes[1][:, Q1:Q1 + T]
+
+
+def k1_cases(old_lib, new_lib, lib64, rng):
+    """Each K1 case through the wrapper on the new kernel, the previous one
+    (where it takes the case) and the plain version; then the new kernel
+    built in double against the plain version in float64, where the
+    agreement does not depend on how well the input is conditioned.
+    Returns (worst float32 vs plain, worst float64 vs plain, both / max amp,
+    every compared case bit-equal)."""
+    worst, worst64, equal = 0.0, 0.0, True
+    dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-3:], dtype=torch.float32)
+    dead = dense.clone()
+    dead[1] = 1e9
+    nofuture = torch.tensor(lws_torch.get_thresholds(1, 1, 0.1, 1), dtype=torch.float32)
+    for label, kw, stage, frames, edges, compare in K1_CASES:
+        proc = lws_torch.LWS(**kw, device="cpu")
+        A, sr, si = random_phase(proc, frames, rng)
+        if stage == "nofuture":
+            sched = (proc._st_nofuture, nofuture, 1, "jacobi")
+        else:
+            sched = (proc._st_batch, dense if stage == "batch" else dead,
+                     proc.batch_inner_passes, proc.inner_scheme)
+        B, T, F = sr.shape
+        halo = mean = None
+        if edges:
+            Q1, scale = proc._Qi - 1, float(np.abs(A).mean())
+            halo = tuple(torch.tensor(rng.standard_normal((B, Q1, F)) * scale,
+                                      dtype=torch.float32) for _ in range(4))
+            mean = torch.tensor(rng.uniform(0.5, 2.0, B) * scale, dtype=torch.float32)
+        plan = sweeps_mod.sweep_plan(F, proc._Qi, proc.L)
+        _build.load = {"lws_sweeps": new_lib}.__getitem__
+        k = sweeps_mod._launch(sr, si, *sched, halo, mean)
+        p = sweeps_mod.tiled_lws_sweeps(sr, si, *sched, halo, mean, backend="torch")
+        worst = max(worst, report(
+            f"K1 {label} {stage} {tuple(sr.shape)} ({plan.bins} bins x {plan.threads} "
+            f"threads, ring {plan.ring}, {plan.staged}/{plan.taps} taps staged, "
+            f"{'fixed' if plan.fixed else 'run-time'} kernel)", k, p, A))
+        if compare:
+            _build.load = {"lws_sweeps": old_lib}.__getitem__
+            o = sweeps_mod._launch(sr, si, *sched, halo, mean)
+            same = torch.equal(k[0], o[0]) and torch.equal(k[1], o[1])
+            equal = equal and same
+            print(f"  vs the previous K1: {'bit-equal' if same else 'DIFFER'}", flush=True)
+        proc64 = lws_torch.LWS(**kw, device="cpu", dtype=torch.float64)
+        st64 = proc64._st_batch if stage != "nofuture" else proc64._st_nofuture
+        args64 = (sr.double(), si.double(), st64, sched[1].double(), *sched[2:],
+                  None if halo is None else tuple(h.double() for h in halo),
+                  None if mean is None else mean.double())
+        k64 = sweeps_float64(lib64, *args64)
+        p64 = sweeps_mod.tiled_lws_sweeps(*args64, backend="torch")
+        worst64 = max(worst64, report("  float64 build vs plain float64", k64, p64, A))
+    return worst, worst64, equal
+
+
+def plan_matches(lib):
+    """lws_sweeps_plan against ops.lws_sweeps.sweep_plan on a table of
+    geometries."""
+    _build.load = {"lws_sweeps": lib}.__getitem__
+    ok = True
+    for F in (6, 129, 257, 289, 513, 1025, 2049, 3073, 16385):
+        for Q, L in ((4, 5), (2, 5), (5, 5), (16, 5), (32, 3), (1, 0)):
+            if F < L + 1:
+                continue
+            mirror, built = sweeps_mod.sweep_plan(F, Q, L), sweeps_mod.kernel_plan(F, Q, L)
+            if mirror != built:
+                ok = False
+                print(f"plan F={F} Q={Q} L={L}: kernel {built} != mirror {mirror}")
+    print(f"K1 launch plan, kernel vs Python mirror: {'equal' if ok else 'DIFFER'}", flush=True)
+    return ok
+
+
 def report(what, k, p, A):
     d = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
     print(f"{what}: max|cpu-built kernel - plain| / max amp {d / A.max():.3e}", flush=True)
@@ -247,13 +407,26 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-dir", default=None,
                     help="where the g++ builds go (default: a temporary directory)")
+    ap.add_argument("--old-k1", default="d38e7e7",
+                    help="git revision of the previous K1 to hold the new one to bit for bit")
     args = ap.parse_args()
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(args.build_dir or tmp)
         libs = {n: build_cpu(n, out) for n in ("lws_sweeps", "lws_online")}
-        _build.load = libs.__getitem__  # the wrappers' _library() loads these
+        old_k1 = bind_sweeps(build_cpu("lws_sweeps", out, csrc=old_sources(args.old_k1, out),
+                                       tag="_old"))
         torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
+
+        # K1: the plan, then each case against the previous K1 and the plain
+        # version (inputs from their own generator)
+        plan_ok = plan_matches(libs["lws_sweeps"])
+        lib_sw64 = build_cpu("lws_sweeps", out, "double")
+        worst_k1, worst_k1_64, k1_equal = k1_cases(old_k1, libs["lws_sweeps"], lib_sw64,
+                                                   np.random.default_rng(7))
+        print(f"worst K1 vs plain: float32 {worst_k1:.3e}, float64 {worst_k1_64:.3e}; "
+              f"previous K1 {'bit-equal on every case' if k1_equal else 'DIFFERS'}")
+        _build.load = libs.__getitem__  # the wrappers' _library() loads these
         rng = np.random.default_rng(0)
         worst = 0.0
         for fsize, fshift, la, iters in ((512, 128, 3, 2), (256, 128, 3, 2),
@@ -366,7 +539,6 @@ def main():
                         f"{'batch' if st is proc._st_batch else 'no-future'} {scheme} "
                         f"passes={ip} micro={micro}", k, p, A))
         print(f"worst float32 grouped {worst_k5:.3e}")
-        lib_sw64 = build_cpu("lws_sweeps", out, "double")
         worst_k5_64 = 0.0
         for fsize, fshift in ((512, 128), (256, 128)):
             proc = lws_torch.LWS(fsize, fshift, device="cpu", dtype=torch.float64)
@@ -382,7 +554,8 @@ def main():
                     f"float64 grouped LWS({fsize}, {fshift}) micro={micro}", k, p, A))
         print(f"worst float64 grouped {worst_k5_64:.3e}")
         ok = (worst < 2e-3 and worst_chunk < 2e-3 and k3_equal and worst64 < 1e-9
-              and worst_k5 < 2e-3 and worst_k5_64 < 1e-9)
+              and worst_k5 < 2e-3 and worst_k5_64 < 1e-9 and plan_ok and k1_equal
+              and worst_k1_64 < 1e-9)
         return 0 if ok else 1
 
 

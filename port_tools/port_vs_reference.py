@@ -2,9 +2,9 @@
 """The disagreements between lws_torch's plain sweeps and lws_tpu found
 while porting (logged in ROADMAP.md, Queue C), measured on the CPU.
 
-    JAX_PLATFORMS=cpu python port_tools/port_vs_reference.py
+    JAX_PLATFORMS=cpu python port_tools/port_vs_reference.py [SECTION ...]
 
-Sections (a few minutes in all):
+Sections (a few minutes in all; all of them without arguments):
   nofuture-mean   no-future, float64, golden q4 with random phases, explicit
                   halo= and mean_amp= at 1.3 / 0.2 and 1.3 / 0.5 of the mean:
                   port vs lws_tpu, and lws_tpu against itself under a 1e-14
@@ -17,7 +17,13 @@ Sections (a few minutes in all):
                   golden q4, 2 sweeps at alpha=1, ip3;
   parity          batch_lws at 100 sweeps in float64 on every golden:
                   consistency of lws_tpu, of the port and of the reference C
-                  core (the golden's consistency_batch).
+                  core (the golden's consistency_batch);
+  q32             LWS(256, 8, L=3) (Q=32, tests/test_oracle.py's geometry
+                  and input), float64, 3 sweeps at alpha=1 from random
+                  phases: the plain port against lws_tpu's Gauss-Seidel
+                  sweeps (jitted; ~35 s of XLA compile), bin by bin, and both
+                  against the reference float64 oracle (lws_tpu.oracle) by
+                  consistency from the magnitudes.
 """
 from __future__ import annotations
 
@@ -142,6 +148,33 @@ def parity():
               f"(|d| {abs(cj - ct):.2g}), reference C core {float(g['consistency_batch']):.4f} dB")
 
 
+def q32():
+    from lws_tpu import oracle
+    j = lws_tpu.LWS(256, 8, L=3, dtype=jnp.float64)
+    t = lws_torch.LWS(256, 8, L=3, dtype=torch.float64, device="cpu")
+    x = np.random.default_rng(13).standard_normal(2400)
+    A = np.abs(j.stft(x)).astype(np.complex128)
+    S = A * np.exp(2j * np.pi * np.random.default_rng(3).random(A.shape))
+    thr = lws_tpu.get_thresholds(3, 1, 0.1, 1)
+    sweep = jax.jit(lambda r, i, th: jax_sweeps(r, i, j._st_batch, th,
+                                                inner_passes=t.batch_inner_passes,
+                                                inner_scheme=t.inner_scheme))
+    kr, ki = sweep(jnp.asarray(S.real), jnp.asarray(S.imag), jnp.asarray(thr))
+    oj = np.asarray(kr) + 1j * np.asarray(ki)
+    ot = t.batch_lws(S, thresholds=thr)
+    print(f"q32 float64 LWS(256, 8, L=3) {A.shape}, Q={t._Qi}, 3 sweeps alpha=1 from random "
+          f"phases: port vs lws_tpu max|d|/max amp {np.abs(oj - ot).max() / np.abs(A).max():.3g}")
+    for n in (3, 5):
+        th = lws_tpu.get_thresholds(n, 1, 0.1, 1)
+        c = [float(t.get_consistency(v)) for v in (t.batch_lws(A, thresholds=th),
+                                                   oracle.oracle_sweeps(A, j.W, th))]
+        print(f"q32 from |X|, {n} sweeps alpha=1: port {c[0]:.4f} dB, oracle {c[1]:.4f} dB "
+              f"(d {c[0] - c[1]:+.4f})")
+
+
+SECTIONS = dict(nofuture_mean=nofuture_mean, nofuture_f32=nofuture_f32, pallas=pallas,
+                parity=parity, q32=q32)
+
 if __name__ == "__main__":
-    for section in (nofuture_mean, nofuture_f32, pallas, parity):
-        section()
+    for name in sys.argv[1:] or SECTIONS:
+        SECTIONS[name.replace("-", "_")]()

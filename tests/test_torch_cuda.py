@@ -78,8 +78,9 @@ def test_kernel_matches_plain(cuda_device, fsize, stage):
 
 @pytest.mark.cuda
 def test_kernel_halo_mean_and_large_q(cuda_device):
-    """halo= / mean_amp= contracts, and Q=16 (weights read from device
-    memory: they do not fit in shared memory)."""
+    """halo= / mean_amp= contracts, and Q=16 (the kernel's run-time path;
+    of its 31 rows of taps the centre row fits in shared memory, the rest
+    are read from device memory)."""
     for fsize, fshift in ((512, 128), (1024, 64)):
         own = lws_torch.LWS(fsize, fshift, device=cuda_device)
         Q1, F = own._Qi - 1, own.fftsize // 2 + 1
@@ -97,6 +98,43 @@ def test_kernel_halo_mean_and_large_q(cuda_device):
                                              backend="torch", **kw)
         err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
         assert err <= TOL * A.max(), (fsize, fshift, err)
+
+
+@pytest.mark.cuda
+def test_kernel_q32_matches_plain(cuda_device):
+    """LWS(256, 8, L=3) (Q=32, past the JAX kernels' MAX_Q): the kernel's
+    run-time path, 3 dense sweeps from random phases, on 300 frames."""
+    own = lws_torch.LWS(256, 8, L=3, device=cuda_device)
+    A, sr, si = _random_phase(own, 300, cuda_device, seed=3)
+    thr = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-3:], dtype=torch.float32,
+                       device=cuda_device)
+    st, ip = own._st_batch, own.batch_inner_passes
+    before = sweeps_mod.LAUNCHES
+    kr, ki = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, own.inner_scheme)
+    assert sweeps_mod.LAUNCHES == before + 1
+    pr, pi = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, own.inner_scheme, backend="torch")
+    err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+    assert err <= TOL * A.max(), err
+
+
+@pytest.mark.cuda
+def test_free_function_complex128_on_cuda(cuda_device):
+    """numpy's default complex128 through the free batch_lws on CUDA: the
+    float32 kernel, complex64 out; backend="torch" keeps float64
+    (complex128); their consistency agrees within 0.1 dB."""
+    own = lws_torch.LWS(512, 128, device=cuda_device)
+    t = np.arange(16000) / 16000.0
+    x = 0.5 * np.sin(2 * np.pi * 440 * t) + 0.1 * np.sin(2 * np.pi * 1234 * t)
+    S = np.abs(own.stft(x)).astype(np.complex128)
+    thr = lws_torch.get_thresholds(20, 100, 0.1, 1)
+    before = sweeps_mod.LAUNCHES
+    out = lws_torch.batch_lws(S, own.W, thr)
+    assert sweeps_mod.LAUNCHES == before + 1
+    ref = lws_torch.batch_lws(S, own.W, thr, backend="torch")
+    assert out.dtype == np.complex64 and ref.dtype == np.complex128
+    assert np.isfinite(out).all() and out.shape == S.shape
+    d = abs(float(own.get_consistency(out)) - float(own.get_consistency(ref)))
+    assert d <= 0.1, d
 
 
 @pytest.mark.cuda
