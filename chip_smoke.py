@@ -8,8 +8,9 @@ Phases, in order:
   1. the card: torch's device name, and nvidia-smi's name and power limit;
   2. the build of every kernel from lws_torch/csrc, one nvcc per source, all
      started together (timed, with the ptxas register / shared-memory
-     report), and the sweep kernel's launch plan as the built library
-     computes it against its Python mirror (ops.lws_sweeps.sweep_plan);
+     report), and the launch plans of the sweep kernel and of the online
+     kernels as the built libraries compute them against their Python
+     mirrors (ops.lws_sweeps.sweep_plan, ops.online.online_plan);
   3. each kernel against its plain version on the card, same float32
      inputs made from a numpy seed, at the paths' shapes: the sweep kernel
      (cases a-d at F=257 / 129, h at F=513, where its weights do not all fit
@@ -18,7 +19,11 @@ Phases, in order:
      out, against backend="torch" in float64), the online kernel (cases
      e-g) and the chunked online
      kernel (case i: chunked, against the online kernel bit for bit; case
-     j: against its plain version, with the running mean), and the grouped
+     j: against its plain version, with the running mean), both online
+     kernels at the geometries their weight-table design added (cases m-q:
+     LWS(4096, 512, mode="music"), Q = 8, F = 2049, and a StreamingLWS of
+     it; Q = 32; look_ahead = 10; F = 8193 with the ring in device memory;
+     each against its plain version), and the grouped
      sweep kernel K5 (cases k: micro 2 and 4 against the plain group
      update, micro 1, which its wrapper runs on K1, against K1 and the plain
      sweeps; then its time at micro 4 on the batch path's input);
@@ -59,7 +64,12 @@ Every timed sweep-kernel (K1) run (the batch path, the music path's batch
 stage, the longform path and its case (a)) prints its microseconds per
 barrier step and per frame, its launch plan (threads, bins per thread,
 the shared-memory window ring, tap planes staged, bytes) and the ptxas
-registers and spills of the kernel the plan picks.
+registers and spills of the kernel the plan picks. The online kernels'
+timed runs (K3 on the music path, K4 on the streaming run) print their
+microseconds per row update, their launch plan (threads, bins per thread,
+whether the ring, the weight table and K4's amp rows sit in shared memory,
+bytes), and the registers and spills of the kernel picked and of every
+variant of K3 and K4.
 
 Exits non-zero, before any result line, without CUDA, without the repo's
 lws_torch beside this file, or when any phase fails. Imports nothing of
@@ -223,8 +233,8 @@ def ptxas_report(text):
     return out
 
 
-def build_phase(s, sweeps_mod):
-    """Phase 2. Returns the ptxas report of lws_sweeps.cu."""
+def build_phase(s, sweeps_mod, online_mod):
+    """Phase 2. Returns the ptxas report of both sources, one dict."""
     from lws_torch.ops import _build
     t0 = time.time()
     paths = _build.build_all(KERNELS)
@@ -242,7 +252,19 @@ def build_phase(s, sweeps_mod):
               if sweeps_mod.kernel_plan(F, Q, L) != sweeps_mod.sweep_plan(F, Q, L)]
     s.check(not differ, f"sweep kernel launch plan, built library vs Python mirror, 35 "
             f"geometries: {'equal' if not differ else f'differ at {differ}'}")
-    return ptxas_report(paths["lws_sweeps"].with_suffix(".log").read_text())
+    cases = [(F, Q, L, LA, chunk, taps, P)
+             for F in (129, 257, 513, 2049, 8193)
+             for Q, L, LA in ((4, 5, 3), (8, 5, 3), (32, 3, 3), (4, 5, 10))
+             for chunk in (False, True)
+             for taps, P in ((None, None), (216, Q), (216, F))]
+    differ = [c for c in cases if online_mod.kernel_plan(*c) != online_mod.online_plan(*c)]
+    s.check(not differ, f"online kernels' launch plan, built library vs Python mirror, "
+            f"{len(cases)} geometries and tables: "
+            f"{'equal' if not differ else f'differ at {differ}'}")
+    ptxas = {}
+    for name in KERNELS:
+        ptxas.update(ptxas_report(paths[name].with_suffix(".log").read_text()))
+    return ptxas
 
 
 def k1_template(plan, Q):
@@ -286,6 +308,59 @@ def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes):
                 threads=plan.threads, bins_per_thread=plan.bins, ring=plan.ring,
                 taps_staged=plan.staged, taps=plan.taps, smem_bytes=plan.bytes,
                 weight_bytes_per_frame=w_bytes, kernel=list(args),
+                registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
+                spill_loads=regs.get("spill_loads"))
+
+
+def online_template(plan):
+    """The template arguments (KQ, KL, KNB, kRing) of the online kernel
+    the launch plan picks (csrc/lws_online.cu pick_kernel)."""
+    if plan.fixed:
+        return (4, 5, plan.bins, 1)
+    return (0, 0, 4 if plan.ring and plan.bins <= 4 else 16, int(plan.ring))
+
+
+def online_registers(ptxas, chunk, args):
+    """ptxas's {registers, spill_stores, spill_loads} of one online kernel."""
+    name = "lws_online_chunk_kernel" if chunk else "lws_online_kernel"
+    key = name + "I" + "".join(f"L{'i' if i < 3 else 'b'}{v}E" for i, v in enumerate(args))
+    found = [v for k, v in ptxas.items() if key in k]
+    return found[0] if found else {}
+
+
+def online_variants(ptxas, chunk):
+    """Print the registers and spills of every variant of K3 (chunk False)
+    or K4 (True) that the build holds."""
+    name = "lws_online_chunk_kernel" if chunk else "lws_online_kernel"
+    for k, v in sorted(ptxas.items()):
+        m = re.search(name + r"ILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E", k)
+        if m and "registers" in v:
+            print(f"    ptxas {name}<{', '.join(m.groups())}>: {v['registers']} registers, "
+                  f"spill stores {v.get('spill_stores')} B, loads {v.get('spill_loads')} B")
+
+
+def online_report(label, online_mod, ptxas, proc, F, chunk, ms, updates):
+    """Print a K3 (chunk False) or K4 run's microseconds per row update
+    (`updates` serial row updates per CTA), its launch plan and its
+    kernel's registers and spills, then every variant's; return them for
+    the kernels line."""
+    wt = online_mod.online_weights(proc._st_la, proc._st_nofuture, proc._st_af)
+    G = int(wt.dks.numel())
+    plan = online_mod.online_plan(F, proc._Qi, proc.L, proc.look_ahead, chunk, G, wt.period)
+    args = online_template(plan)
+    regs = online_registers(ptxas, chunk, args)
+    us = 1e3 * ms / updates
+    name = "lws_online_chunk_kernel" if chunk else "lws_online_kernel"
+    print(f"  {'K4' if chunk else 'K3'} {label}: {ms:.3f} ms, {updates} row updates per CTA "
+          f"-> {us:.3f} us per row update; plan: {plan.threads} threads x {plan.bins} bins, "
+          f"ring in shared memory {plan.ring}, table ({G} live taps x P = {wt.period}) in "
+          f"shared memory {plan.table}, amp rows in shared memory {plan.amp}, {plan.bytes} B; "
+          f"kernel {name}<{', '.join(map(str, args))}>: {regs.get('registers')} registers, "
+          f"spill stores {regs.get('spill_stores')} B, loads {regs.get('spill_loads')} B")
+    online_variants(ptxas, chunk)
+    return dict(us_per_row_update=us, row_updates=updates, threads=plan.threads,
+                bins_per_thread=plan.bins, ring=plan.ring, table=plan.table, amp_rows=plan.amp,
+                live_taps=G, period=wt.period, smem_bytes=plan.bytes, kernel=list(args),
                 registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
                 spill_loads=regs.get("spill_loads"))
 
@@ -520,6 +595,112 @@ def chunk_cases(s, torch, lws_torch, online_mod):
     return worst
 
 
+# Geometries the online kernels take since their weight-table design
+# (phase 3, cases m-q): (case, LWS arguments, seconds of mixture, rounds). Whole
+# spectrograms (consistency needs their frame count): 164, 331, 203 and
+# 43 frames.
+# m: LWS(4096, 512, mode="music") (Q = 8, F = 2049: run-time kernel, table
+# in shared memory beside the ring); n: a StreamingLWS of it (K4 with its
+# amp rows in device memory); o: Q = 32 (table in device memory); p:
+# look_ahead = 10; q: F = 8193 (ring in device memory).
+NEW_ONLINE = (
+    ("m", dict(awin_or_fsize=4096, fshift=512, mode="music"), 5.0, 10),
+    ("o", dict(awin_or_fsize=256, fshift=8, L=3), 0.15, 2),
+    ("p", dict(awin_or_fsize=512, fshift=128, look_ahead=10), 1.6, 3),
+    ("q", dict(awin_or_fsize=16384, fshift=4096), 10.0, 2),
+)
+
+
+def new_online_cases(s, torch, lws_torch, online_mod):
+    """Phase 3, cases m-q: K3 and K4 (chunked, running mean) against their
+    plain versions on the card at the geometries of NEW_ONLINE, float32,
+    2 mixtures from seeded random phases: the first frames bin by bin
+    (TOL_CASE), every utterance by consistency (TOL_ONLINE_DB), magnitudes;
+    then case n, a StreamingLWS of case m's processor against the plain
+    stream. Returns the largest max |delta| of K3's and of K4's first
+    frames."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(10)
+    worst = {False: 0.0, True: 0.0}
+    early = slice(0, ONLINE_EARLY_FRAMES)
+    for tag, kw, secs, iters in NEW_ONLINE:
+        proc = lws_torch.LWS(**kw, device=dev)
+        x = make_batch(2, int(secs * SAMPLE_RATE), SAMPLE_RATE, rng)
+        sr, si, amp = random_phases(torch, rng, *proc.stft_ri(x))
+        thr = torch.as_tensor(lws_torch.get_thresholds(iters, 1, 0.1, 1), dtype=torch.float32,
+                              device=dev)
+        wt = online_mod.online_weights(proc._st_la, proc._st_nofuture, proc._st_af)
+        F = int(sr.shape[-1])
+        plan = online_mod.online_plan(F, proc._Qi, proc.L, proc.look_ahead, True,
+                                      int(wt.dks.numel()), wt.period)
+        B, T = sr.shape[:2]
+        means = torch.cumsum(amp.mean(dim=-1), dim=1) / torch.arange(
+            1, T + 1, dtype=torch.float32, device=dev)
+        before = (online_mod.LAUNCHES, online_mod.CHUNK_LAUNCHES)
+        k3 = online_mod.packed_rtisi_la(sr, si, proc._st_la, proc._st_nofuture, proc._st_af,
+                                        thr, proc.inner_passes, proc.inner_scheme)
+        k4 = chunked(torch, online_mod, proc, sr, si, means, thr)
+        launched = (online_mod.LAUNCHES - before[0], online_mod.CHUNK_LAUNCHES - before[1])
+        p3 = online_mod.packed_rtisi_la(sr, si, proc._st_la, proc._st_nofuture, proc._st_af,
+                                        thr, proc.inner_passes, proc.inner_scheme,
+                                        backend="torch")
+        p4 = chunked(torch, online_mod, proc, sr, si, means, thr, backend="torch")
+        s.sync()
+        head = (f"case {tag} LWS({kw['awin_or_fsize']}, {kw['fshift']}) Q={proc._Qi} "
+                f"LA={proc.look_ahead} {iters} rounds {tuple(sr.shape)} (P = {wt.period}, "
+                f"{int(wt.dks.numel())} live taps; K4 plan: ring in shared memory "
+                f"{plan.ring}, table {plan.table}, amp rows {plan.amp})")
+        s.check(launched == (1, 4), f"{head}: K3 launches {launched[0]} (1), K4 {launched[1]} "
+                f"(4: chunks 17, 1, rest and the drain)")
+        for chunk, (kr, ki), (pr, pi) in ((False, k3, p3), (True, k4, p4)):
+            d = max(float((kr[:, early] - pr[:, early]).abs().max()),
+                    float((ki[:, early] - pi[:, early]).abs().max()))
+            worst[chunk] = max(worst[chunk], d)
+            rel = d / float(amp.max())
+            dc = float((proc.get_consistency((kr, ki))
+                        - proc.get_consistency((pr, pi))).abs().max())
+            mag = float(((torch.sqrt(kr * kr + ki * ki) - amp).abs()
+                         / amp.clamp_min(1e-30)).max())
+            s.check(np.isfinite(d) and rel <= TOL_CASE and dc <= TOL_ONLINE_DB
+                    and mag <= TOL_MAGNITUDE,
+                    f"{head} {'K4 chunked' if chunk else 'K3'} vs plain: first "
+                    f"{ONLINE_EARLY_FRAMES} frames max|d|/max amp {rel:.3e} (tol {TOL_CASE:g}), "
+                    f"per-utterance consistency max {dc:.4f} dB (tol {TOL_ONLINE_DB}), "
+                    f"magnitudes {mag:.2e} (tol {TOL_MAGNITUDE:g})")
+        if tag == "m":
+            stream_case(s, torch, lws_torch, online_mod, proc, x)
+    return worst
+
+
+def stream_case(s, torch, lws_torch, online_mod, proc, x):
+    """Case n: StreamingLWS of `proc` (LWS(4096, 512, mode="music")) on two
+    streams of x pushed in 0.5 s chunks, block_frames 16, against the plain
+    stream (backend="torch"): consistency of the committed frames per
+    stream, the audio's shape."""
+    B = x.shape[0]
+    results = {}
+    for backend in ("auto", "torch"):
+        st = lws_torch.StreamingLWS(proc, streams=B, block_frames=16, keep_frames=True,
+                                    backend=backend)
+        before = online_mod.CHUNK_LAUNCHES
+        outs = [st.push_block(x[:, i:i + 8000]) for i in range(0, x.shape[-1], 8000)]
+        outs.append(st.flush())
+        launched = online_mod.CHUNK_LAUNCHES - before
+        com = torch.as_tensor(np.stack(st.committed_frames, axis=1), device=proc.device)
+        c = proc.get_consistency((com.real.contiguous(), com.imag.contiguous()))
+        results[backend] = (np.concatenate(outs, axis=-1), c, launched, st._frames_seen,
+                            tuple(com.shape))
+    (y, c, launched, seen, shape), (yp, cp, *_) = results["auto"], results["torch"]
+    dc = float((c - cp).abs().max())
+    s.check(launched >= 1 and launched == seen // 16,
+            f"case n StreamingLWS(LWS(4096, 512, mode='music')), {B} streams, block_frames 16: "
+            f"{launched} K4 launches for {seen} frames, committed {shape}")
+    s.check(dc <= TOL_ONLINE_DB and y.shape == yp.shape and bool(np.isfinite(y).all()),
+            f"case n K4 stream vs plain stream: consistency {float(c.mean()):.4f} vs "
+            f"{float(cp.mean()):.4f} dB, per-stream max {dc:.4f} dB (tol {TOL_ONLINE_DB}); "
+            f"audio {y.shape}")
+
+
 def random_phases(torch, rng, sr, si):
     """|S| of (sr, si) with seeded random phases, and |S| itself."""
     amp = torch.sqrt(sr * sr + si * si)
@@ -657,13 +838,12 @@ def online_bound(proc, online_mod, T, F, B, iters, frames=None, launches=None):
     epilogue per bin and pass (colors update a 1/k share of the bins per
     pass), over the row updates the stage runs for T live frames (frames
     before the start are skipped); each input and output plane touched
-    once, the weight sets read once. For K4 over a stream (launches given):
+    once, the weight table read once. For K4 over a stream (launches given):
     `frames` frames through the kernel (drains included; they update
-    nothing), each launch reading the weight sets and the state once and
+    nothing), each launch reading the weight table and the state once and
     writing the state once, and a threshold per frame and round."""
-    sets = [proc._st_nofuture, proc._st_af, *proc._st_la]
-    _, _, _, counts = online_mod.online_weight_sets(proc._st_la, proc._st_nofuture,
-                                                    proc._st_af)
+    wt = online_mod.online_weights(proc._st_la, proc._st_nofuture, proc._st_af)
+    counts = wt.counts
     from lws_torch.core.stencil import _parse_colors
     colors = proc.inner_scheme != "jacobi"
     if colors:
@@ -681,7 +861,7 @@ def online_bound(proc, online_mod, T, F, B, iters, frames=None, launches=None):
     updates = {0: T, 1: iters * T}
     updates.update({2 + d - 1: iters * (T - d) for d in range(1, LA + 1)})
     flops = float(B * F * sum(n * per_bin(s) for s, n in updates.items()))
-    weights = 2 * len(sets) * sets[0].Wr.numel()
+    weights = wt.table.numel()  # (re, im) of each live tap, P columns
     if launches is None:
         nbytes = 4.0 * (5 * B * T * F + weights + B * iters)
     else:
@@ -790,6 +970,8 @@ def music_path(s, torch, lws_torch, sweeps_mod, online_mod, ptxas):
           f"kernel vs plain max {dc_on:.4f} dB), bound {bound_ms:.4f} ms by {bound_by} "
           f"({flops:.4g} flop, {nbytes:.4g} B), {updates} serial row updates per CTA -> "
           f"{1e3 * ms / updates:.3f} us per row update")
+    k3_plan = online_report("music online stage", online_mod, ptxas, proc, int(F), False, ms,
+                            updates)
 
     # the sweep kernel at F=513 (weights read from device memory): the
     # batch stage alone on the online output
@@ -830,7 +1012,7 @@ def music_path(s, torch, lws_torch, sweeps_mod, online_mod, ptxas):
         replaces="lws_tpu/ops/pallas_packed.py:985", launches=launches["lws_online"],
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
         shape=[B, int(T), int(F)], rounds=proc.online_iterations,
-        look_ahead=proc.look_ahead, row_updates=updates)
+        look_ahead=proc.look_ahead, row_updates=updates, plan=k3_plan)
     music_sweeps = dict(launches=launches["lws_sweeps"], batch_stage_ms=b_ms,
                         batch_stage_bound_ms=b_bound, batch_stage_plan=b_plan,
                         shape=[B, int(T), int(F)],
@@ -868,7 +1050,7 @@ class KernelTimer:
         return float(sum(a.elapsed_time(b) for a, b in self.events))
 
 
-def stream_path(s, torch, lws_torch, online_mod):
+def stream_path(s, torch, lws_torch, online_mod, ptxas):
     """Phase 6. Returns the kernels-line entry for the chunked online
     kernel (K4)."""
     from lws_torch.stft import frame_signal
@@ -1032,12 +1214,15 @@ def stream_path(s, torch, lws_torch, online_mod):
     print(f"  K4 bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} flop, {nbytes:.4g} B over "
           f"{launches} launches); {updates} row updates per CTA -> "
           f"{1e3 * ms / updates:.3f} us per row update")
+    k4_plan = online_report("streaming run", online_mod, ptxas, proc, int(com.shape[-1]), True,
+                            ms, updates)
     return dict(name="lws_online_chunk", route="cuda", source="lws_torch/csrc/lws_online.cu",
                 replaces="lws_tpu/ops/pallas_packed.py:1180", launches=launches, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 shape=[B, launches * STREAM_BLOCK, int(com.shape[-1])], live_frames=T_live,
                 rounds=10, look_ahead=LA, row_updates=updates, stream_wall_ms=1e3 * wall,
-                audio_s_per_s=B * secs / wall, consistency_db=float(c.mean()), latency=lat)
+                audio_s_per_s=B * secs / wall, consistency_db=float(c.mean()), latency=lat,
+                plan=k4_plan)
 
 
 def main_path(s, torch, lws_torch, sweeps_mod, ptxas):
@@ -1286,17 +1471,18 @@ def main():
 
     s = Smoke(torch)
     card_lines(torch)
-    ptxas = build_phase(s, sweeps_mod)
+    ptxas = build_phase(s, sweeps_mod, online_mod)
     worst = kernel_cases(s, torch, lws_torch, sweeps_mod)
     free_function_case(s, torch, lws_torch, sweeps_mod)
     worst_online = online_cases(s, torch, lws_torch, online_mod)
     worst_chunk = chunk_cases(s, torch, lws_torch, online_mod)
+    worst_new = new_online_cases(s, torch, lws_torch, online_mod)
     worst_packed = packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod)
     batch_sweeps = main_path(s, torch, lws_torch, sweeps_mod, ptxas)
     packed_entry = packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod)
     online_entry, music_sweeps = music_path(s, torch, lws_torch, sweeps_mod, online_mod,
                                             ptxas)
-    chunk_entry = stream_path(s, torch, lws_torch, online_mod)
+    chunk_entry = stream_path(s, torch, lws_torch, online_mod, ptxas)
     longform = longform_path(s, torch, lws_torch, sweeps_mod, seg_mod, ptxas)
     # K1: the longform path's run (this slice's path) at the top; the batch
     # path's run and the music path's batch stage nested, each from its own
@@ -1305,8 +1491,8 @@ def main():
                  replaces="lws_tpu/ops/pallas_packed.py:1411", library_ms=None,
                  **longform, batch=batch_sweeps, music=music_sweeps)
     entry["max_abs_err"] = worst
-    online_entry["max_abs_err"] = worst_online
-    chunk_entry["max_abs_err"] = worst_chunk
+    online_entry["max_abs_err"] = max(worst_online, worst_new[False])
+    chunk_entry["max_abs_err"] = max(worst_chunk, worst_new[True])
     packed_entry["max_abs_err"] = worst_packed
     kernels = [entry, online_entry, chunk_entry, packed_entry]
     for e in kernels:

@@ -54,6 +54,21 @@ class Stencil:
         return bool(self.nz[self.Q - 1].any())
 
     @cached_property
+    def period(self) -> int:
+        """The weights' period in the bin index: Q when every bin n's taps
+        equal bin n mod Q's bit for bit (summarized weights, where
+        fsize % fshift == 0), else F. Decided once, from the tensors."""
+        Q, F = self.Q, self.n_bins
+        if Q >= F:
+            return F
+        col = torch.arange(F, device=self.Wr.device) % Q
+        for w in (self.Wr, self.Wi):
+            bits = w.view(torch.int32 if w.element_size() == 4 else torch.int64)
+            if not torch.equal(bits, bits[..., col]):
+                return F
+        return Q
+
+    @cached_property
     def _off_centre(self):
         """(row index, Wr, Wi) of the off-centre rows holding any live tap."""
         c = self.Q - 1

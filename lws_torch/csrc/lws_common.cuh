@@ -12,7 +12,7 @@
 
 namespace {
 
-constexpr int kMaxQ = 16;  // the JAX kernels' MAX_Q: K3, K4 and K5 (K1 has no cap)
+constexpr int kMaxQ = 16;  // the JAX kernels' MAX_Q: K5 (K1, K3 and K4 have no cap)
 constexpr int kMaxThreads = 1024;
 constexpr int kSmemLimit = 232448;  // per-block opt-in limit on sm_90
 

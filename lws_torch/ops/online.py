@@ -10,19 +10,26 @@ and the lane skip is not carried over (it raises). Each wrapper
   - computes amp = |S| and the thresholds in torch: thr[b, h] =
     thresholds[h] * mean amp[b] for K3, thr[b, m, h] = thresholds[h] *
     means[b, m] for K4, as the plain versions do;
-  - stacks the 2+LA weight sets [st_ai, st_af, *st_la] and lists each set's
-    live taps from the host `nz` masks;
-  - allocates separate outputs (K4: a new state too) and launches its
-    kernel once, counting the launch (LAUNCHES, CHUNK_LAUNCHES).
+  - takes the weight table of the 2+LA sets [st_ai, st_af, *st_la]
+    (`online_weights`: the live taps by P columns, P = Q for summarized
+    weights, with their tap lists), built once per set of stencils and
+    cached with them;
+  - allocates separate outputs (K4: a new state too; K3: the ring's scratch
+    where the plan keeps it in device memory) and launches its kernel once,
+    counting the launch (LAUNCHES, CHUNK_LAUNCHES).
 
-CPU tensors, and backend="torch", take the plain versions
-(lws_torch.core.online.rtisi_la / online_chunk). A CUDA tensor a kernel does
-not take (float64, a window too wide for shared memory, look_ahead >
-MAX_LA) raises a ValueError that names backend="torch"; nothing falls back.
+`online_plan` mirrors the kernels' launch plan (threads, bins per thread,
+whether the ring, the table and K4's amp rows sit in shared memory, bytes;
+csrc/lws_online.cu::online_plan). Any Q, L and look-ahead run, F up to
+16384. CPU tensors, and backend="torch", take the plain versions
+(lws_torch.core.online.rtisi_la / online_chunk). A CUDA tensor the kernels
+do not take (float64) raises a ValueError that names backend="torch";
+nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -32,51 +39,110 @@ from ..core.online import online_chunk as plain_online_chunk
 from ..core.online import rtisi_la as plain_rtisi_la
 from ..core.stencil import Stencil, _parse_colors
 from . import _build
-from .lws_sweeps import MAX_Q, SMEM_LIMIT
+from .lws_sweeps import SMEM_LIMIT
 
 __all__ = ["packed_rtisi_la", "online_chunk", "online_chunk_init", "ChunkState",
-           "online_supported", "online_weight_sets", "device_weight_sets", "online_smem_bytes",
-           "check_online", "MAX_LA", "LAUNCHES", "CHUNK_LAUNCHES"]
-
-# Longest look-ahead the kernel takes (the JAX kernel's limit).
-MAX_LA = 8
+           "online_supported", "online_weight_sets", "online_weights", "OnlineWeights",
+           "online_plan", "OnlinePlan", "check_online", "LAUNCHES", "CHUNK_LAUNCHES"]
 
 # Kernel launches so far (K3, K4); a path's run is read as a difference.
 LAUNCHES = 0
 CHUNK_LAUNCHES = 0
 
 _LIB = "lws_online"
+_MAX_THREADS = 1024
+_MAX_BINS = 16  # bins per thread of the run-time kernels
+_FIXED_THREADS = 768  # the compile-time kernels' launch bound
 
 
 def _library():
     lib = _build.load(_LIB)
     if lib.lws_online_launch.argtypes is None:
         lib.lws_online_launch.argtypes = (
-            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.lws_online_launch.restype = ctypes.c_int
         lib.lws_online_chunk_launch.argtypes = (
-            [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+            [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12
             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
         lib.lws_online_chunk_launch.restype = ctypes.c_int
+        lib.lws_online_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.lws_online_plan.restype = ctypes.c_int
         lib.lws_online_error_string.argtypes = [ctypes.c_int]
         lib.lws_online_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def online_smem_bytes(F: int, Q: int, L: int, LA: int, chunk: bool = False) -> int:
-    """Shared memory of one block: the (LA+Q)-row ring (re, im), six F-rows
-    of scratch, the tap lists, and for K4 (chunk=True) the LA+1 amp rows
-    (the kernels' lws_online_smem_bytes / lws_online_chunk_smem_bytes)."""
-    S = 2 + LA
-    amp_rows = LA + 1 if chunk else 0
-    return (4 * (2 * (LA + Q) + 6 + amp_rows) * F
-            + 4 * (S * (2 * Q - 1) * (2 * L + 1) + 2 * S))
+class OnlinePlan(NamedTuple):
+    """K3's / K4's launch plan for one geometry and weight table."""
+    bins: int      # bins per thread, strided: tid, tid + threads, ...
+    threads: int   # threads per block
+    width: int     # (re, im) pairs per ring row: F and L margin bins each side
+    ring: bool     # the LA+Q-row ring in shared memory (else device memory)
+    table: bool    # the weight table in shared memory (else device memory)
+    amp: bool      # K4's LA+1 amp rows in shared memory (K3: False)
+    fixed: bool    # the compile-time kernel: (Q, L) = (4, 5), P = Q, 1-3 bins on
+                   # at most 768 threads, ring and table in shared memory
+    bytes: int     # dynamic shared memory per block
+
+    @property
+    def fits(self) -> bool:
+        return self.bytes <= SMEM_LIMIT and self.bins <= _MAX_BINS
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def online_plan(F: int, Q: int, L: int, LA: int, chunk: bool = False, taps: int | None = None,
+                period: int | None = None) -> OnlinePlan:
+    """The online kernels' launch plan (csrc/lws_online.cu::online_plan,
+    exported as lws_online_plan) for F bins, (Q, L), look-ahead LA, K4 when
+    `chunk`, and a weight table of `taps` live taps by `period` columns
+    (default: every tap of the 2+LA sets live, P = Q; the wrappers pass
+    their table's). bins = ceil(F / 1024) strided bins per thread on
+    round_up(ceil(F / bins), 32) threads. Shared memory holds one
+    centre-row copy and the tap lists, then the ring (LA+Q rows of
+    `width` (re, im) pairs), the table (8 bytes per tap and column) and
+    K4's amp rows, each where it still fits, in that order."""
+    F, Q, L, LA = int(F), int(Q), int(L), int(LA)
+    S, R = 2 + LA, 2 * Q - 1
+    G = S * R * (2 * L + 1) if taps is None else int(taps)
+    P = Q if period is None else int(period)
+    bins = _ceil_div(F, _MAX_THREADS)
+    threads = _ceil_div(_ceil_div(F, bins), 32) * 32
+    width = F + 2 * L
+    used = 8 * width + 4 * (3 * S * R + G)
+    ring = used + (LA + Q) * 8 * width <= SMEM_LIMIT
+    used += (LA + Q) * 8 * width if ring else 0
+    table = used + 8 * G * P <= SMEM_LIMIT
+    used += 8 * G * P if table else 0
+    amp = bool(chunk) and used + 4 * (LA + 1) * F <= SMEM_LIMIT
+    used += 4 * (LA + 1) * F if amp else 0
+    fixed = (Q == 4 and L == 5 and P == Q and ring and table and bins <= 3
+             and threads <= _FIXED_THREADS)
+    return OnlinePlan(bins, threads, width, ring, table, amp, fixed, used)
+
+
+def kernel_plan(F: int, Q: int, L: int, LA: int, chunk: bool = False, taps: int | None = None,
+                period: int | None = None) -> OnlinePlan:
+    """The plan the built library computes (lws_online_plan), to hold the
+    mirror to; builds csrc/lws_online.cu on first use."""
+    S, R = 2 + LA, 2 * Q - 1
+    G = S * R * (2 * L + 1) if taps is None else int(taps)
+    P = Q if period is None else int(period)
+    out = (ctypes.c_longlong * 8)()
+    _library().lws_online_plan(int(F), int(Q), int(L), int(LA), int(bool(chunk)), G, P,
+                               ctypes.addressof(out))
+    v = list(out)
+    return OnlinePlan(v[0], v[1], v[2], bool(v[3]), bool(v[4]), bool(v[5]), bool(v[6]), v[7])
 
 
 def online_supported(F: int, Q: int, L: int, LA: int, chunk: bool = False) -> bool:
-    """Whether the online kernel (chunk=True: K4) takes this geometry."""
-    return (1 <= Q <= MAX_Q and 0 <= LA <= MAX_LA and F >= L + 1
-            and online_smem_bytes(F, Q, L, LA, chunk) <= SMEM_LIMIT)
+    """Whether the online kernel (chunk=True: K4) takes this geometry: its
+    plan fits one block with every tap live (where the ring, the table or
+    the amp rows do not fit shared memory they sit in device memory)."""
+    return (Q >= 1 and L >= 0 and LA >= 0 and F >= L + 1
+            and online_plan(F, Q, L, LA, chunk).fits)
 
 
 def check_online(F: int, Q: int, L: int, LA: int, dtype, chunk: bool = False) -> None:
@@ -89,30 +155,68 @@ def check_online(F: int, Q: int, L: int, LA: int, dtype, chunk: bool = False) ->
     if not online_supported(F, Q, L, LA, chunk):
         raise ValueError(
             f"lws_torch: the {'chunked ' if chunk else ''}online kernel does not take "
-            f"F={F}, Q={Q}, L={L}, look_ahead={LA} (Q <= {MAX_Q}, look_ahead <= "
-            f"{MAX_LA}, and {online_smem_bytes(F, Q, L, LA, chunk)} B of shared memory "
-            f"against {SMEM_LIMIT}); use backend='torch' for the plain version")
+            f"F={F}, Q={Q}, L={L}, look_ahead={LA} (F from L + 1 to "
+            f"{_MAX_BINS * _MAX_THREADS}); use backend='torch' for the plain version")
 
 
-def online_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil):
-    """(wr, wi, taps, counts): the weight sets [st_ai, st_af, *st_la]
-    stacked (S, 2Q-1, 2L+1, F), and for each set the indices dr*(2L+1)+dk
-    of its live off-centre taps then of its live centre taps (S, R*K, zero
-    padded), with their counts (S, 2), from the host nz masks."""
+class OnlineWeights(NamedTuple):
+    """The weights of the 2+LA sets [st_ai, st_af, *st_la] as the kernels
+    read them."""
+    table: torch.Tensor  # (G, P, 2), the stencils' dtype: (re, im) of live tap g at column p
+    rows: torch.Tensor   # (S, 2Q-1, 3) int32: per set and row of taps, the bit mask
+                         # of its live dk (0 where 2L+1 > 31), the index of its first
+                         # live tap in the table, and its count
+    dks: torch.Tensor    # (G,) int32: the dk of each live tap
+    period: int          # P: bin n reads column n mod P
+    counts: np.ndarray   # (S, 2) host: live off-centre and centre taps per set
+
+
+def online_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> OnlineWeights:
+    """Build the weight table of the sets [st_ai, st_af, *st_la] on their
+    device: each set's live off-centre taps in (dr, dk) order, then its live
+    centre taps (from the host nz masks), by P columns, P = Q when every
+    set's weights repeat with period Q in the bin index (Stencil.period),
+    else F. Column p of tap (dr, dk) holds W[dr, dk, p], the same float32
+    values bin n reads at W[dr, dk, n] for n = p mod P."""
     sets = [st_ai, st_af, *st_la]
-    Q, L = st_af.Q, st_af.L
+    Q, L, F = st_af.Q, st_af.L, st_af.n_bins
     R, K, c = 2 * Q - 1, 2 * L + 1, Q - 1
-    taps = np.zeros((len(sets), R * K), dtype=np.int32)
+    P = Q if all(st.period == Q for st in sets) else F
+    rows = np.zeros((len(sets), R, 3), dtype=np.int32)
     counts = np.zeros((len(sets), 2), dtype=np.int32)
+    which, drs, dks = [], [], []
     for s, st in enumerate(sets):
-        off = [dr * K + dk for dr in range(R) for dk in range(K)
-               if dr != c and st.nz[dr, dk]]
-        cen = [c * K + dk for dk in range(K) if st.nz[c, dk]]
-        taps[s, :len(off) + len(cen)] = off + cen
-        counts[s] = len(off), len(cen)
-    wr = torch.stack([st.Wr for st in sets]).contiguous()
-    wi = torch.stack([st.Wi for st in sets]).contiguous()
-    return wr, wi, taps, counts
+        for dr in [r for r in range(R) if r != c] + [c]:
+            live = [dk for dk in range(K) if st.nz[dr, dk]]
+            mask = sum(1 << dk for dk in live) if K <= 31 else 0
+            rows[s, dr] = mask, len(dks), len(live)
+            which += [s] * len(live)
+            drs += [dr] * len(live)
+            dks += live
+        counts[s] = int(st.nz.sum() - st.nz[c].sum()), int(st.nz[c].sum())
+    dev = st_af.Wr.device
+    idx = [torch.as_tensor(v, dtype=torch.long, device=dev) for v in (which, drs, dks)]
+    cols = torch.arange(P, device=dev)
+    planes = []
+    for part in ("Wr", "Wi"):
+        w = torch.stack([getattr(st, part) for st in sets])
+        planes.append(w[idx[0], idx[1], idx[2]][:, cols])
+    table = torch.stack(planes, dim=-1).contiguous()
+    return OnlineWeights(table, torch.as_tensor(rows, device=dev),
+                         torch.as_tensor(np.asarray(dks, np.int32), device=dev), P, counts)
+
+
+def online_weights(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> OnlineWeights:
+    """online_weight_sets for these stencils, built at the first call and
+    cached with st_af (the stencils are immutable), so a launch copies
+    nothing to the card."""
+    sets = (st_ai, st_af, *st_la)
+    cache = st_af.__dict__.setdefault("_online_weights", {})
+    key = tuple(map(id, sets))
+    hit = cache.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], sets)):
+        hit = cache[key] = (sets, online_weight_sets(st_la, st_ai, st_af))
+    return hit[1]
 
 
 def packed_rtisi_la(
@@ -199,18 +303,21 @@ def _launch(sr, si, st_la, st_ai, st_af, thresholds, inner_passes, inner_scheme)
     si3 = si.reshape(B, T, F).contiguous()
     amp = torch.sqrt(sr3 * sr3 + si3 * si3)
     thr = (thresholds[None, :] * amp.mean(dim=(-2, -1))[:, None]).contiguous()
-    wr, wi, taps, counts = device_weight_sets(st_la, st_ai, st_af)
+    wt = online_weights(st_la, st_ai, st_af)
     out_r = torch.empty_like(sr3)
     out_i = torch.empty_like(si3)
     passes, color_k, rounds = _scheme(inner_passes, inner_scheme)
+    plan = online_plan(F, Q, L, LA, taps=wt.dks.numel(), period=wt.period)
+    ring = [None, None]
+    if not plan.ring:  # the ring's scratch in device memory
+        ring = [torch.empty((B, LA + Q, F), dtype=torch.float32, device=dev) for _ in ring]
 
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.lws_online_launch(
-        sr3.data_ptr(), si3.data_ptr(), amp.data_ptr(), out_r.data_ptr(),
-        out_i.data_ptr(), wr.data_ptr(), wi.data_ptr(), taps.data_ptr(),
-        counts.data_ptr(), thr.data_ptr(), B, T, F, Q, L, LA, iters, passes,
-        color_k, rounds, stream)
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (sr3, si3, amp, out_r, out_i, wt.table, wt.rows, wt.dks, thr, *ring)]
+    err = lib.lws_online_launch(*ptrs, B, T, F, Q, L, LA, iters, passes, color_k, rounds,
+                                wt.dks.numel(), wt.period, stream)
     _raise_on(lib, err)
     LAUNCHES += 1
     return out_r.reshape(shape), out_i.reshape(shape)
@@ -236,7 +343,6 @@ def online_chunk(
     inner_scheme: str = "jacobi",
     backend: str = "auto",
     *,
-    weights=None,
     lane_skip: bool = False,
 ):
     """Advance B streams by the N frames (sr, si) of shape (B, N, F) from
@@ -247,10 +353,7 @@ def online_chunk(
     value of absolute frame state.seen + m - LA (lws_torch.core.online.
     online_chunk). backend="auto" launches K4 for CUDA float32 tensors and
     runs the plain version for CPU tensors; backend="torch" runs the plain
-    version anywhere. `state` is not modified. `weights`: what
-    device_weight_sets returns for these stencils, for a caller that
-    launches often (StreamingLWS): without it each launch builds the weight
-    sets and copies the tap lists to the card, a host sync.
+    version anywhere. `state` is not modified.
     """
     if lane_skip:
         raise ValueError("lws_torch: lane_skip is a TPU launch knob of "
@@ -263,19 +366,11 @@ def online_chunk(
     if sr.device.type != "cuda":
         raise ValueError(f"lws_torch: the online kernel runs on CUDA, got {sr.device}")
     return _launch_chunk(sr, si, state, means, st_la, st_ai, st_af, thresholds, n_live,
-                         inner_passes, inner_scheme, weights)
-
-
-def device_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil):
-    """online_weight_sets with the tap lists and counts on the stencils'
-    device: (wr, wi, taps, counts), all tensors."""
-    wr, wi, taps, counts = online_weight_sets(st_la, st_ai, st_af)
-    return wr, wi, torch.as_tensor(taps, device=wr.device), torch.as_tensor(counts,
-                                                                            device=wr.device)
+                         inner_passes, inner_scheme)
 
 
 def _launch_chunk(sr, si, state, means, st_la, st_ai, st_af, thresholds, n_live,
-                  inner_passes, inner_scheme, weights=None):
+                  inner_passes, inner_scheme):
     global CHUNK_LAUNCHES
     _check(sr, si, st_la, st_ai, st_af,
            [("means", means), ("state ring_r", state.ring_r), ("state ring_i", state.ring_i),
@@ -303,17 +398,18 @@ def _launch_chunk(sr, si, state, means, st_la, st_ai, st_af, thresholds, n_live,
     ins = [t.contiguous() for t in (state.ring_r, state.ring_i, state.amp)]
     amp = torch.sqrt(sr * sr + si * si)
     thr = (thresholds[None, None, :] * means[:, :, None]).contiguous()
-    wr, wi, taps, counts = weights or device_weight_sets(st_la, st_ai, st_af)
+    wt = online_weights(st_la, st_ai, st_af)
     out_r, out_i = torch.empty_like(sr), torch.empty_like(si)
     outs = [torch.empty_like(t) for t in ins]
     passes, color_k, rounds = _scheme(inner_passes, inner_scheme)
 
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = [t.data_ptr() for t in (sr, si, amp, thr, *ins, *outs, out_r, out_i, wr, wi,
-                                   taps, counts)]
+    ptrs = [t.data_ptr() for t in (sr, si, amp, thr, *ins, *outs, out_r, out_i, wt.table,
+                                   wt.rows, wt.dks)]
     err = lib.lws_online_chunk_launch(*ptrs, B, N, F, Q, L, LA, iters, passes, color_k,
-                                      rounds, int(state.seen), n_live, stream)
+                                      rounds, wt.dks.numel(), wt.period, int(state.seen),
+                                      n_live, stream)
     _raise_on(lib, err)
     CHUNK_LAUNCHES += 1
     return out_r, out_i, ChunkState(*outs, int(state.seen) + N)

@@ -138,11 +138,6 @@ class StreamingLWS:
         self.prefetch = bool(prefetch)
         self._awin = torch.as_tensor(proc.awin).to(self.device, self.dtype)
         self._swin = torch.as_tensor(proc.swin[:proc.fsize]).to(self.device, self.dtype)
-        # K4's weight sets and tap lists, on the card once per stream
-        self._weights = None
-        if backend == "auto" and self.device.type == "cuda":
-            self._weights = _online.device_weight_sets(proc._st_la, proc._st_nofuture,
-                                                       proc._st_af)
         self._fixed = None
         if mean_amp is not None:
             fixed = np.broadcast_to(np.asarray(mean_amp, np.float64).reshape(-1),
@@ -198,8 +193,7 @@ class StreamingLWS:
         end = max(skip, end)
         cr, ci, self._state = _online.online_chunk(
             fr, fi, self._state, means, proc._st_la, proc._st_nofuture, proc._st_af,
-            self.thresholds, n_live, proc.inner_passes, proc.inner_scheme, self.backend,
-            weights=self._weights)
+            self.thresholds, n_live, proc.inner_passes, proc.inner_scheme, self.backend)
 
         # rows outside [skip, end) are pipeline fill or flush padding: they
         # are zeroed before they reach the overlap-add

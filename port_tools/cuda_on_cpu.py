@@ -51,6 +51,8 @@ from lws_torch.ops import _build  # noqa: E402
 from lws_torch.ops import lws_sweeps as sweeps_mod  # noqa: E402
 from lws_torch.ops import online as online_mod  # noqa: E402
 from lws_torch.ops import packed as packed_mod  # noqa: E402
+from online_timing import (bind_legacy, legacy_chunk, legacy_online,  # noqa: E402
+                           legacy_weight_sets)
 
 SHIM = r"""
 #pragma once
@@ -66,6 +68,9 @@ SHIM = r"""
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+
+struct float2 { float x, y; };
+struct double2 { double x, y; };
 
 struct dim3 {
   unsigned x, y, z;
@@ -123,6 +128,7 @@ def cpu_source(text: str, real: str) -> str:
     elements, are the float build's."""
     if real == "double":
         text = text.replace("kSmemLimit = 232448;", "kSmemLimit = 2 * 232448;")
+        text = re.sub(r"\bfloat2\b", "double2", text)
     text = re.sub(r"\bfloat\b", real, text)
     text = text.replace(f"extern __shared__ {real} smem[];",
                         f"{real}* smem = reinterpret_cast<{real}*>(cpu_smem);")
@@ -155,18 +161,21 @@ def build_cpu(name: str, out_dir: Path, real: str = "float", csrc: Path = _build
 
 def online_float64(lib, sr, si, st_la, st_ai, st_af, thresholds, passes, color_k, rounds):
     """The online kernel built in double, launched on float64 tensors with
-    the wrapper's own weight sets and thresholds."""
+    the wrapper's own weight table (in float64) and thresholds."""
     B, T, F = sr.shape
     amp = torch.sqrt(sr * sr + si * si)
     thr = (thresholds[None, :] * amp.mean(dim=(-2, -1))[:, None]).contiguous()
-    wr, wi, taps, counts = online_mod.online_weight_sets(st_la, st_ai, st_af)
-    taps, counts = torch.as_tensor(taps), torch.as_tensor(counts)
+    wt = online_mod.online_weight_sets(st_la, st_ai, st_af)
+    table = wt.table.double()
     out_r, out_i = torch.empty_like(sr), torch.empty_like(si)
-    ptrs = [t.data_ptr() for t in (sr, si, amp, out_r, out_i, wr, wi, taps, counts, thr)]
-    lib.lws_online_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [
+    ring = [torch.empty((B, len(st_la) + st_af.Q, F), dtype=torch.float64) for _ in range(2)]
+    ptrs = [t.data_ptr() for t in (sr, si, amp, out_r, out_i, table, wt.rows, wt.dks, thr,
+                                   *ring)]
+    lib.lws_online_launch.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]
     err = lib.lws_online_launch(*ptrs, B, T, F, st_af.Q, st_af.L, len(st_la),
-                                thresholds.shape[0], passes, color_k, rounds, None)
+                                thresholds.shape[0], passes, color_k, rounds,
+                                wt.dks.numel(), wt.period, None)
     assert err == 0, err
     return out_r, out_i
 
@@ -174,23 +183,23 @@ def online_float64(lib, sr, si, st_la, st_ai, st_af, thresholds, passes, color_k
 def chunk_float64(lib, sr, si, state, means, st_la, st_ai, st_af, thresholds, n_live,
                   passes, color_k, rounds):
     """K4 built in double, launched on float64 tensors with the wrapper's
-    own amp, thresholds and weight sets."""
+    own amp, thresholds and weight table (in float64)."""
     B, N, F = sr.shape
     amp = torch.sqrt(sr * sr + si * si)
     thr = (thresholds[None, None, :] * means[:, :, None]).contiguous()
-    wr, wi, taps, counts = online_mod.online_weight_sets(st_la, st_ai, st_af)
-    taps, counts = torch.as_tensor(taps), torch.as_tensor(counts)
+    wt = online_mod.online_weight_sets(st_la, st_ai, st_af)
+    table = wt.table.double()
     ins = [state.ring_r, state.ring_i, state.amp]
     outs = [torch.empty_like(t) for t in ins]
     out_r, out_i = torch.empty_like(sr), torch.empty_like(si)
-    ptrs = [t.data_ptr() for t in (sr, si, amp, thr, *ins, *outs, out_r, out_i, wr, wi,
-                                   taps, counts)]
+    ptrs = [t.data_ptr() for t in (sr, si, amp, thr, *ins, *outs, out_r, out_i, table,
+                                   wt.rows, wt.dks)]
     lib.lws_online_chunk_launch.argtypes = (
-        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12
         + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
     err = lib.lws_online_chunk_launch(*ptrs, B, N, F, st_af.Q, st_af.L, len(st_la),
                                       thresholds.shape[0], passes, color_k, rounds,
-                                      state.seen, n_live, None)
+                                      wt.dks.numel(), wt.period, state.seen, n_live, None)
     assert err == 0, err
     return out_r, out_i, online_mod.ChunkState(*outs, state.seen + N)
 
@@ -252,12 +261,12 @@ def random_phase(proc, frames, rng, B=2):
             torch.tensor(S.imag, dtype=torch.float32))
 
 
-def old_sources(rev: str, out_dir: Path) -> Path:
-    """csrc/lws_sweeps.cu and the headers it includes at git revision `rev`,
-    written to out_dir/csrc_<rev>."""
-    dest = out_dir / f"csrc_{rev}"
+def old_sources(rev: str, out_dir: Path, name: str = "lws_sweeps") -> Path:
+    """csrc/<name>.cu and the headers it includes at git revision `rev`,
+    written to out_dir/csrc_<name>_<rev>."""
+    dest = out_dir / f"csrc_{name}_{rev}"
     dest.mkdir(parents=True, exist_ok=True)
-    for path in _build.sources("lws_sweeps"):
+    for path in _build.sources(name):
         rel = path.relative_to(ROOT).as_posix()
         text = subprocess.run(["git", "-C", str(ROOT), "show", f"{rev}:{rel}"],
                               capture_output=True, text=True, check=True).stdout
@@ -397,6 +406,138 @@ def plan_matches(lib):
     return ok
 
 
+def bit_equal(what, new, old):
+    same = all(torch.equal(a, b) for a, b in zip(new, old))
+    print(f"{what}: {'bit-equal' if same else 'DIFFER'}", flush=True)
+    return same
+
+
+def online_plan_matches():
+    """lws_online_plan against ops.online.online_plan on a table of
+    geometries and tables."""
+    ok = True
+    for F in (6, 129, 257, 513, 1025, 2049, 4097, 8193, 16385):
+        for Q, L, LA in ((4, 5, 3), (4, 5, 0), (8, 5, 3), (32, 3, 3), (4, 5, 10), (2, 5, 3)):
+            if F < L + 1:
+                continue
+            for chunk in (False, True):
+                for taps, period in ((None, None), (216, Q), (216, F)):
+                    mirror = online_mod.online_plan(F, Q, L, LA, chunk, taps, period)
+                    built = online_mod.kernel_plan(F, Q, L, LA, chunk, taps, period)
+                    if mirror != built:
+                        ok = False
+                        print(f"online plan F={F} Q={Q} L={L} LA={LA} chunk={chunk} taps={taps} "
+                              f"P={period}: kernel {built} != mirror {mirror}")
+    print(f"K3 / K4 launch plan, kernel vs Python mirror: {'equal' if ok else 'DIFFER'}",
+          flush=True)
+    return ok
+
+
+# Geometries the previous K3 / K4 refused, then the compile-time kernel at
+# 2 and 3 bins per thread (which the previous ones took: held to them bit
+# for bit too): (label, LWS arguments, frames, rounds, compare with the
+# previous K3 / K4). F = 2049 at Q = 8 is LWS(4096, 512, mode="music")'s online stage;
+# Q = 32 reads its table from device memory; F = 8193 keeps the ring in
+# device memory (seeded random magnitudes: a 1 s clip has 7 frames there;
+# the others use random_phase); LWS(1000, 256) has per-bin (fractional)
+# weights, P = F.
+NEW_GEOMETRIES = (
+    ("Q=8 F=2049", dict(awin_or_fsize=4096, fshift=512), 10, 1, False),
+    ("Q=32 L=3 F=129", dict(awin_or_fsize=256, fshift=8, L=3), 12, 2, False),
+    ("LA=10 F=257", dict(awin_or_fsize=512, fshift=128, look_ahead=10), 16, 2, False),
+    ("F=8193, ring in device memory", dict(awin_or_fsize=16384, fshift=4096), 10, 1, False),
+    ("fractional weights F=501", dict(awin_or_fsize=1000, fshift=256), 12, 2, False),
+    ("Q=4 F=1025, 2 bins per thread", dict(awin_or_fsize=2048, fshift=512), 10, 1, True),
+    ("Q=4 F=2049, 3 bins per thread", dict(awin_or_fsize=4096, fshift=1024), 10, 1, True),
+)
+
+
+# Float32 kernel-vs-plain comparisons of a dense online run hold its first
+# frames bin by bin (chip_smoke.py's ONLINE_EARLY_FRAMES): later frames
+# carry the commit chain's amplified rounding, which the float64 build's
+# whole-run agreement rules out as a fault.
+EARLY_FRAMES = 6
+
+
+def random_spec(F, frames, rng, B=2, dtype=torch.float32):
+    """Seeded random magnitudes and phases (B, frames, F)."""
+    A = rng.uniform(0.1, 1.0, (B, frames, F))
+    S = A * np.exp(2j * np.pi * rng.random(A.shape))
+    return A, torch.tensor(S.real, dtype=dtype), torch.tensor(S.imag, dtype=dtype)
+
+
+def new_geometries(lib64, old_online, rng):
+    """K3 and K4 (chunked, running mean) against their plain versions at
+    the geometries of NEW_GEOMETRIES: float32 through the wrappers (and
+    against the previous K3 / K4 where flagged), then the double build
+    against the plain version in float64. Returns the worst of each, / max
+    amp, and whether every compared case was bit-equal."""
+    worst, worst64, equal = 0.0, 0.0, True
+    for label, kw, frames, iters, compare in NEW_GEOMETRIES:
+        for dtype in (torch.float32, torch.float64):
+            proc = lws_torch.LWS(**kw, device="cpu", dtype=dtype)
+            F = proc.fftsize // 2 + 1
+            if kw["awin_or_fsize"] > 16000:  # a 1 s clip holds too few frames
+                A, sr, si = random_spec(F, frames, rng, dtype=dtype)
+            else:
+                A, sr, si = random_phase(proc, frames, rng)
+                sr, si = sr.to(dtype), si.to(dtype)
+            thr = torch.tensor(lws_torch.get_thresholds(iters, 1, 0.1, 1), dtype=dtype)
+            on = (proc._st_la, proc._st_nofuture, proc._st_af, thr)
+            sch = (proc.inner_passes, proc.inner_scheme)
+            wt = online_mod.online_weight_sets(*on[:3])
+            plan = online_mod.online_plan(F, proc._Qi, proc.L, proc.look_ahead, True,
+                                          wt.dks.numel(), wt.period)
+            head = (f"{label} (Q={proc._Qi}, LA={proc.look_ahead}, P={wt.period}, "
+                    f"{wt.dks.numel()} live taps; K4 plan: ring {plan.ring}, table "
+                    f"{plan.table}, amp rows {plan.amp}, {plan.bins} bins x {plan.threads})")
+            if dtype == torch.float32:
+                k3 = online_mod._launch(sr, si, *on, *sch)
+
+                def k4(r, i, st, means, n_live):
+                    return online_mod._launch_chunk(r, i, st, means, *on, n_live, *sch)
+                if compare:
+                    legacy = legacy_weight_sets(*on[:3])
+
+                    def old_k4(r, i, st, means, n_live):
+                        return legacy_chunk(old_online, legacy, r, i, st, means, thr, n_live,
+                                            *sch)
+                    equal &= bit_equal(f"{label}: K3 vs the previous K3", k3, legacy_online(
+                        old_online, legacy, sr, si, thr, proc.look_ahead, *sch))
+                    equal &= bit_equal(f"{label}: K4 chunked vs the previous K4",
+                                       chunked(k4, sr, si, proc, thr, False)[0],
+                                       chunked(old_k4, sr, si, proc, thr, False)[0])
+            else:
+                passes, color_k, rounds = online_mod._scheme(*sch)
+                k3 = online_float64(lib64, sr, si, *on, passes, color_k, rounds)
+
+                def k4(r, i, st, means, n_live):
+                    return chunk_float64(lib64, r, i, st, means, *on, n_live, passes,
+                                         color_k, rounds)
+
+            def plain(r, i, st, means, n_live):
+                return online_mod.online_chunk(r, i, st, means, *on, n_live, *sch)
+
+            p3 = online_mod.packed_rtisi_la(sr, si, *on, *sch, backend="torch")
+            k, _ = chunked(k4, sr, si, proc, thr, False)
+            p, _ = chunked(plain, sr, si, proc, thr, False)
+            tag = "float64 build"
+            if dtype == torch.float32:
+                # the commit chain amplifies float32 rounding: first frames only
+                tag = f"float32 (first {EARLY_FRAMES} frames)"
+                k3, p3, k, p = ((r[:, :EARLY_FRAMES], i[:, :EARLY_FRAMES])
+                                for r, i in (k3, p3, k, p))
+            d = max(report(f"{tag} K3 {head} {tuple(sr.shape)}", k3, p3, A),
+                    report(f"  {tag} K4 chunked, running mean", k, p, A))
+            if dtype == torch.float32:
+                worst = max(worst, d)
+            else:
+                worst64 = max(worst64, d)
+    print(f"newly covered geometries, worst vs plain: float32 {worst:.3e}, float64 "
+          f"{worst64:.3e}", flush=True)
+    return worst, worst64, equal
+
+
 def report(what, k, p, A):
     d = max(float((k[0] - p[0]).abs().max()), float((k[1] - p[1]).abs().max()))
     print(f"{what}: max|cpu-built kernel - plain| / max amp {d / A.max():.3e}", flush=True)
@@ -409,6 +550,9 @@ def main():
                     help="where the g++ builds go (default: a temporary directory)")
     ap.add_argument("--old-k1", default="d38e7e7",
                     help="git revision of the previous K1 to hold the new one to bit for bit")
+    ap.add_argument("--old-online", default="4c91317",
+                    help="git revision of the previous K3 / K4 (per-bin weight planes) to "
+                         "hold the new ones to bit for bit")
     args = ap.parse_args()
     torch.set_num_threads(1)
     with tempfile.TemporaryDirectory() as tmp:
@@ -416,6 +560,9 @@ def main():
         libs = {n: build_cpu(n, out) for n in ("lws_sweeps", "lws_online")}
         old_k1 = bind_sweeps(build_cpu("lws_sweeps", out, csrc=old_sources(args.old_k1, out),
                                        tag="_old"))
+        old_online = bind_legacy(build_cpu(
+            "lws_online", out, csrc=old_sources(args.old_online, out, "lws_online"),
+            tag="_old_online"))
         torch.cuda.current_stream = lambda dev=None: types.SimpleNamespace(cuda_stream=0)
 
         # K1: the plan, then each case against the previous K1 and the plain
@@ -427,8 +574,9 @@ def main():
         print(f"worst K1 vs plain: float32 {worst_k1:.3e}, float64 {worst_k1_64:.3e}; "
               f"previous K1 {'bit-equal on every case' if k1_equal else 'DIFFERS'}")
         _build.load = libs.__getitem__  # the wrappers' _library() loads these
+        online_plan_ok = online_plan_matches()
         rng = np.random.default_rng(0)
-        worst = 0.0
+        worst, old_equal = 0.0, True
         for fsize, fshift, la, iters in ((512, 128, 3, 2), (256, 128, 3, 2),
                                          (512 + 64, 128, 2, 2), (1024, 256, 3, 1),
                                          (512, 128, 0, 1)):
@@ -436,6 +584,7 @@ def main():
             A, sr, si = random_phase(proc, 20, rng)
             thr = torch.tensor(lws_torch.get_thresholds(iters, 1, 0.1, 1), dtype=torch.float32)
             on = (proc._st_la, proc._st_nofuture, proc._st_af, thr)
+            legacy = legacy_weight_sets(*on[:3])
             for ip in sorted({proc.inner_passes, 2}):
                 k = online_mod._launch(sr, si, *on, ip, proc.inner_scheme)
                 p = online_mod.packed_rtisi_la(sr, si, *on, ip, proc.inner_scheme,
@@ -443,6 +592,8 @@ def main():
                 worst = max(worst, report(
                     f"online LWS({fsize}, {fshift}) LA={la} {iters} rounds "
                     f"{proc.inner_scheme} passes={ip} {tuple(sr.shape)}", k, p, A))
+                o = legacy_online(old_online, legacy, sr, si, thr, la, ip, proc.inner_scheme)
+                old_equal &= bit_equal("  vs the previous K3", k, o)
             dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-2:],
                                  dtype=torch.float32)
             for st, ip, scheme, th in ((proc._st_batch, proc.batch_inner_passes,
@@ -472,13 +623,23 @@ def main():
             def plain(r, i, st, means, n_live):
                 return online_mod.online_chunk(r, i, st, means, *on, n_live, *sch)
 
+            legacy = legacy_weight_sets(*on[:3])
+
+            def old_k4(r, i, st, means, n_live):
+                return legacy_chunk(old_online, legacy, r, i, st, means, thr, n_live, *sch)
+
             (kr, ki), kst = chunked(k4, sr, si, proc, thr, False)
             (pr, pi), pst = chunked(plain, sr, si, proc, thr, False)
+            (orr, ori), ost = chunked(old_k4, sr, si, proc, thr, False)
+            old_equal &= bit_equal("  K4 chunked, running mean, vs the previous K4",
+                                   (kr, ki, *kst[:3]), (orr, ori, *ost[:3]))
             d = report(f"chunked online LWS({fsize}, {fshift}) LA={la} {iters} rounds "
                        f"{proc.inner_scheme}, running mean", (kr, ki), (pr, pi), A)
             ds = report("  its final state", kst[:2], pst[:2], A)
             worst_chunk = max(worst_chunk, d, ds)
             (fr, fi), _ = chunked(k4, sr, si, proc, thr, True)
+            old_equal &= bit_equal("  K4 chunked, fixed mean, vs the previous K4", (fr, fi),
+                                   chunked(old_k4, sr, si, proc, thr, True)[0])
             k3 = online_mod._launch(sr, si, *on, *sch)
             same = torch.equal(fr, k3[0]) and torch.equal(fi, k3[1])
             k3_equal = k3_equal and same
@@ -518,6 +679,10 @@ def main():
                 f"float64 chunked online LWS({fsize}, {fshift}) LA={la} {proc.inner_scheme}",
                 k, p, A), report("  its final state", kst[:2], pst[:2], A))
         print(f"worst float64 {worst64:.3e}")
+        print(f"previous K3 / K4 ({args.old_online}): "
+              f"{'bit-equal on every case' if old_equal else 'DIFFER'}")
+        worst_new, worst_new64, new_equal = new_geometries(lib64, old_online,
+                                                           np.random.default_rng(11))
 
         # K5: the grouped sweeps against the plain group update
         worst_k5 = 0.0
@@ -554,6 +719,8 @@ def main():
                     f"float64 grouped LWS({fsize}, {fshift}) micro={micro}", k, p, A))
         print(f"worst float64 grouped {worst_k5_64:.3e}")
         ok = (worst < 2e-3 and worst_chunk < 2e-3 and k3_equal and worst64 < 1e-9
+              and old_equal and new_equal and online_plan_ok and worst_new < 2e-3
+              and worst_new64 < 1e-9
               and worst_k5 < 2e-3 and worst_k5_64 < 1e-9 and plan_ok and k1_equal
               and worst_k1_64 < 1e-9)
         return 0 if ok else 1

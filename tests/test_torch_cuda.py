@@ -223,14 +223,23 @@ def test_music_run_lws_on_cuda_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 def test_online_kernel_rejects_what_it_does_not_take(cuda_device):
+    """float64 raises, naming backend='torch'; LWS(4096, 512) (Q = 8,
+    F = 2049, which the previous kernel refused) runs through the kernel and
+    matches the plain version on its first frames."""
     own = lws_torch.LWS(512, 128, device=cuda_device, dtype=torch.float64)
     A = np.abs(np.random.default_rng(5).standard_normal((2, 30, 257)))
     with pytest.raises(ValueError, match="backend='torch'"):
         own.online_lws(A.astype(np.complex128), iterations=1)
     wide = lws_torch.LWS(4096, 512, device=cuda_device)  # F=2049, Q=8
-    B = torch.ones((1, 20, 2049), device=cuda_device)
-    with pytest.raises(ValueError, match="backend='torch'"):
-        wide.online_lws((B, torch.zeros_like(B)), iterations=1)
+    A, sr, si = _random_phase(wide, 20, cuda_device, seed=6)
+    before = online_mod.LAUNCHES
+    kr, ki = wide.online_lws((sr, si), iterations=1)
+    assert online_mod.LAUNCHES == before + 1
+    pr, pi = lws_torch.LWS(4096, 512, device=cuda_device, backend="torch").online_lws(
+        (sr, si), iterations=1)
+    err = max(float((kr[:, :6] - pr[:, :6]).abs().max()),
+              float((ki[:, :6] - pi[:, :6]).abs().max()))
+    assert err <= TOL * A.max(), err
 
 
 def _chunked(online_mod, own, sr, si, means, thr, backend="auto"):

@@ -166,7 +166,9 @@ def test_entry_runs_on_cpu():
 
 def test_online_wrapper_checks(golden_q4):
     """The wrapper's CPU path is the plain loop; the TPU lane skip raises;
-    the fit gate follows shared memory."""
+    the fit gate takes Q = 8 at F = 2049 and look-ahead past lws_tpu's 8;
+    the weight table lists every live tap once, in the kernels' order, with
+    the stencils' own values."""
     p = _proc(golden_q4)
     A = torch.tensor(np.abs(golden_q4.S))
     thr = torch.tensor(lws_torch.get_thresholds(1, 1, 0.1, 1))
@@ -177,12 +179,24 @@ def test_online_wrapper_checks(golden_q4):
     with pytest.raises(ValueError, match="lane_skip"):
         online_mod.packed_rtisi_la(*args, lane_skip=True)
     assert online_mod.online_supported(513, 4, 5, 3)
-    assert not online_mod.online_supported(2049, 8, 5, 3)
-    assert not online_mod.online_supported(257, 4, 5, online_mod.MAX_LA + 1)
-    wr, wi, taps, counts = online_mod.online_weight_sets(p._st_la, p._st_nofuture, p._st_af)
-    assert wr.shape == (2 + p.look_ahead, 7, 2 * p.L + 1, A.shape[-1])
-    # every live tap is listed once, centre taps after the others
-    for s, st in enumerate([p._st_nofuture, p._st_af, *p._st_la]):
-        n_off, n_cen = counts[s]
+    assert online_mod.online_supported(2049, 8, 5, 3)  # LWS(4096, 512, mode="music")
+    assert online_mod.online_supported(257, 4, 5, 10)
+    wt = online_mod.online_weight_sets(p._st_la, p._st_nofuture, p._st_af)
+    sets = [p._st_nofuture, p._st_af, *p._st_la]
+    assert wt.period == 4 and wt.table.shape == (sum(int(st.nz.sum()) for st in sets), 4, 2)
+    # every live tap is listed once, each set's off-centre rows in dr order,
+    # then its centre row (dr = 3), each row's live dk in order
+    g = 0
+    for s, st in enumerate(sets):
+        n_off, n_cen = wt.counts[s]
         assert n_off + n_cen == st.nz.sum() and n_cen == st.nz[3].sum()
-        assert all(t // (2 * p.L + 1) == 3 for t in taps[s, n_off:n_off + n_cen])
+        for dr in [0, 1, 2, 4, 5, 6, 3]:
+            mask, first, count = (int(v) for v in wt.rows[s, dr])
+            live = np.flatnonzero(st.nz[dr])
+            assert (first, count) == (g, live.size)
+            assert mask == sum(1 << int(dk) for dk in live)
+            assert wt.dks[first:first + count].tolist() == live.tolist()
+            for part, plane in ((0, st.Wr), (1, st.Wi)):
+                assert torch.equal(wt.table[first:first + count, :, part],
+                                   plane[dr][torch.as_tensor(live)][:, :4])
+            g += count

@@ -239,7 +239,9 @@ def test_stream_stats_latency_and_emit(q4):
 
 def test_online_chunk_wrapper_checks(q4):
     """The wrapper's CPU path is the plain chunk; the TPU lane skip raises;
-    the fit gate raises naming backend='torch'."""
+    the dtype gate raises naming backend='torch'; F = 8193 is taken, its
+    ring in device memory, and the amp rows sit in shared memory beside the
+    ring where they fit."""
     g, p, A, _ = q4
     sr = torch.tensor(A[None, :10])
     si = torch.zeros_like(sr)
@@ -254,7 +256,7 @@ def test_online_chunk_wrapper_checks(q4):
         online_mod.online_chunk(*args, lane_skip=True)
     with pytest.raises(ValueError, match="backend='torch'"):
         online_mod.check_online(257, 4, 5, 3, torch.float64, chunk=True)
-    with pytest.raises(ValueError, match="backend='torch'"):
-        online_mod.check_online(8193, 4, 5, 3, torch.float32, chunk=True)
-    assert online_mod.online_smem_bytes(257, 4, 5, 3, chunk=True) == \
-        online_mod.online_smem_bytes(257, 4, 5, 3) + 4 * 4 * 257
+    online_mod.check_online(8193, 4, 5, 3, torch.float32, chunk=True)
+    assert not online_mod.online_plan(8193, 4, 5, 3, chunk=True).ring
+    assert online_mod.online_plan(257, 4, 5, 3, chunk=True).bytes == \
+        online_mod.online_plan(257, 4, 5, 3).bytes + 4 * 4 * 257
