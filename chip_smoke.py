@@ -8,9 +8,10 @@ Phases, in order:
   1. the card: torch's device name, and nvidia-smi's name and power limit;
   2. the build of every kernel from lws_torch/csrc, one nvcc per source, all
      started together (timed, with the ptxas register / shared-memory
-     report), and the launch plans of the sweep kernel and of the online
-     kernels as the built libraries compute them against their Python
-     mirrors (ops.lws_sweeps.sweep_plan, ops.online.online_plan);
+     report), and the launch plans of the sweep kernel, the online
+     kernels and the grouped sweep kernel as the built libraries compute
+     them against their Python mirrors (ops.lws_sweeps.sweep_plan,
+     ops.online.online_plan, ops.packed.packed_plan);
   3. each kernel against its plain version on the card, same float32
      inputs made from a numpy seed, at the paths' shapes: the sweep kernel
      (cases a-d at F=257 / 129, h at F=513, where its weights do not all fit
@@ -26,7 +27,10 @@ Phases, in order:
      each against its plain version), and the grouped
      sweep kernel K5 (cases k: micro 2 and 4 against the plain group
      update, micro 1, which its wrapper runs on K1, against K1 and the plain
-     sweeps; then its time at micro 4 on the batch path's input);
+     sweeps; tiled_lws_sweeps and segmented_lws_sweeps at micro 2 on K5;
+     the geometries K5's plan newly takes, F = 2049 at micro 5, Q = 16 and
+     F = 8193; then its time at micro 4 on the batch path's input and at
+     micro 2 and 4 on the music path's batch-stage input);
   4. the batch path at full width: LWS(512, 128) on 32 x 5 s utterances at
      16 kHz, stft -> batch_lws(|X|) (100 sweeps) -> get_consistency ->
      istft, with the launch counts of that one run, the kernel and plain
@@ -69,7 +73,10 @@ timed runs (K3 on the music path, K4 on the streaming run) print their
 microseconds per row update, their launch plan (threads, bins per thread,
 whether the ring, the weight table and K4's amp rows sit in shared memory,
 bytes), and the registers and spills of the kernel picked and of every
-variant of K3 and K4.
+variant of K3 and K4. The grouped sweep kernel's timed runs (K5) print
+their microseconds per step, their launch plan (threads, elements per
+thread, where the ring, the weight table, the centre buffers and the sums
+sit, bytes, scratch) and the registers and spills of the kernel picked.
 
 Exits non-zero, before any result line, without CUDA, without the repo's
 lws_torch beside this file, or when any phase fails. Imports nothing of
@@ -169,6 +176,15 @@ MUSIC_B, MUSIC_SECONDS, MUSIC_SEED = 32, 5.0, 1
 # The streaming path: bench.py's streaming workload (bench.py:235-354), 8
 # streams x 5 s pushed in 0.5 s chunks, one chunk launch per 64 frames.
 STREAM_B, STREAM_SECONDS, STREAM_SEED, STREAM_CHUNK, STREAM_BLOCK = 8, 5.0, 5, 8000, 64
+# Case k's geometries that K5's plan newly takes (the previous K5 kept the
+# state's micro rows in shared memory and refused them): (label, LWS
+# (fsize, fshift), micro, seconds of mixture at 16 kHz, sweeps at alpha=1).
+K5_GEOMETRIES = (
+    ("F = 2049 at micro 5, ring in device memory", (4096, 1024), 5, 2.0, 4),
+    ("Q = 16 at micro 2", (1024, 64), 2, 0.5, 3),
+    ("F = 8193 at micro 2, ring and centre buffers in device memory", (16384, 4096), 2, 5.0,
+     3),
+)
 
 
 def make_batch(B, n, sr_hz, rng):
@@ -260,6 +276,16 @@ def build_phase(s, sweeps_mod, online_mod):
     differ = [c for c in cases if online_mod.kernel_plan(*c) != online_mod.online_plan(*c)]
     s.check(not differ, f"online kernels' launch plan, built library vs Python mirror, "
             f"{len(cases)} geometries and tables: "
+            f"{'equal' if not differ else f'differ at {differ}'}")
+    from lws_torch.ops import packed as packed_mod
+    cases = [(F, Q, L, micro, taps, P)
+             for F in (129, 257, 513, 2049, 8193)
+             for Q, L in ((4, 5), (2, 5), (16, 5))
+             for micro in (2, 4, 5)
+             for taps, P in ((None, None), (60, Q), (60, F))]
+    differ = [c for c in cases if packed_mod.kernel_plan(*c) != packed_mod.packed_plan(*c)]
+    s.check(not differ, f"grouped sweep kernel (K5) launch plan, built library vs Python "
+            f"mirror, {len(cases)} geometries and tables: "
             f"{'equal' if not differ else f'differ at {differ}'}")
     ptxas = {}
     for name in KERNELS:
@@ -709,12 +735,15 @@ def random_phases(torch, rng, sr, si):
     return (amp * torch.cos(ph)).contiguous(), (amp * torch.sin(ph)).contiguous(), amp
 
 
-def packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod):
-    """Phase 3, the grouped sweep kernel (K5) on the card, float32, on
-    (4, 628, 257) from seeded random phases, LWS(512, 128)'s batch stencil
-    (3 in-frame jacobi passes), 12 sweeps at alpha=1: each micro against the
-    plain group update, and micro = 1 (K1 behind K5's wrapper) against K1
-    bit for bit. Returns the largest max |delta|."""
+def packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod, seg_mod):
+    """Phase 3, the grouped sweep kernel (K5) on the card, float32, from
+    seeded random phases, against the plain group update. Case k: (4, 628,
+    257), LWS(512, 128)'s batch stencil (3 in-frame jacobi passes), 12
+    sweeps at alpha=1, each micro, micro = 1 (K1 behind K5's wrapper)
+    against K1 bit for bit; lws_tpu's other entry points at micro 2 on K5
+    (tiled_lws_sweeps, one launch, equal to packed_lws_sweeps; the
+    segmented sweeps, one launch per exchange block); then the geometries
+    K5's plan newly takes (K5_GEOMETRIES). Returns the largest max |delta|."""
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(6)
     x = make_batch(CASE_B, int(MAIN_SECONDS * SAMPLE_RATE), SAMPLE_RATE, rng)
@@ -726,29 +755,109 @@ def packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod):
     ip, scheme = proc.batch_inner_passes, proc.inner_scheme
     k1 = sweeps_mod.tiled_lws_sweeps(sr, si, *sched, ip, scheme)
     worst = 0.0
+
+    def held(label, k, p, a, launched=None, expected=None):
+        nonlocal worst
+        s.sync()
+        d = float(torch.maximum((k[0] - p[0]).abs(), (k[1] - p[1]).abs()).max())
+        rel = d / float(a.max())
+        worst = max(worst, d)
+        counted = "" if expected is None else f", {launched} K5 launches (expected {expected})"
+        s.check(np.isfinite(d) and rel <= TOL_CASE and launched == expected,
+                f"case k {label}: max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g}){counted}")
+
+    base = f"{tuple(sr.shape)}, 12 sweeps alpha=1, {ip} jacobi passes"
+    grouped = {}
     for micro in (1, 2, 4):
+        before = packed_mod.LAUNCHES
         kr, ki = packed_mod.packed_lws_sweeps(sr, si, *sched, micro, ip, scheme)
+        launched = packed_mod.LAUNCHES - before
         pr, pi = packed_mod.packed_lws_sweeps(sr, si, *sched, micro, ip, scheme,
                                               backend="torch")
-        s.sync()
-        d = float(torch.maximum((kr - pr).abs(), (ki - pi).abs()).max())
-        rel = d / float(amp.max())
-        worst = max(worst, d)
-        s.check(np.isfinite(d) and rel <= TOL_CASE,
-                f"case k K5 micro={micro} vs its plain version, {tuple(sr.shape)}, 12 sweeps "
-                f"alpha=1, {ip} jacobi passes: max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g})")
+        held(f"K5 micro={micro} vs its plain version, {base}", (kr, ki), (pr, pi), amp,
+             launched, int(micro > 1))
+        grouped[micro] = (kr, ki)
         if micro == 1:
             s.check(torch.equal(kr, k1[0]) and torch.equal(ki, k1[1]),
                     "case k K5 micro=1 vs K1 on the same inputs: bit-equal")
+    before = packed_mod.LAUNCHES
+    tk = sweeps_mod.tiled_lws_sweeps(sr, si, *sched, ip, scheme, micro=2)
+    launched = packed_mod.LAUNCHES - before
+    tp = sweeps_mod.tiled_lws_sweeps(sr, si, *sched, ip, scheme, backend="torch", micro=2)
+    held(f"tiled_lws_sweeps(micro=2) vs its plain version, {base}", tk, tp, amp, launched, 1)
+    s.check(torch.equal(tk[0], grouped[2][0]) and torch.equal(tk[1], grouped[2][1]),
+            "case k tiled_lws_sweeps(micro=2) vs packed_lws_sweeps(micro=2): bit-equal")
+    kw = dict(segments=4, sweeps_per_exchange=3, micro=2, inner_passes=ip, inner_scheme=scheme)
+    before = packed_mod.LAUNCHES
+    gk = seg_mod.segmented_lws_sweeps(sr, si, *sched, **kw)
+    launched = packed_mod.LAUNCHES - before
+    gp = seg_mod.segmented_lws_sweeps(sr, si, *sched, backend="torch", **kw)
+    held(f"segmented_lws_sweeps(segments=4, every 3 sweeps, micro=2) vs its plain version, "
+         f"{base}", gk, gp, amp, launched, 4)
+
+    for label, (fsize, fshift), micro, secs, sweeps in K5_GEOMETRIES:
+        p = lws_torch.LWS(fsize, fshift, device=dev)
+        xg = make_batch(2, int(secs * SAMPLE_RATE), SAMPLE_RATE, rng)
+        r0, i0, a0 = random_phases(torch, rng, *p.stft_ri(xg))
+        th = torch.as_tensor(lws_torch.get_thresholds(sweeps, 1, 0.1, 1), dtype=torch.float32,
+                             device=dev)
+        st = p._st_batch
+        wt = packed_mod.packed_weights(st)
+        T, F = r0.shape[-2:]
+        plan = packed_mod.packed_plan(F, st.Q, st.L, micro, int(wt.dks.numel()), wt.period)
+        before = packed_mod.LAUNCHES
+        k = packed_mod.packed_lws_sweeps(r0, i0, st, th, micro, p.batch_inner_passes,
+                                         p.inner_scheme)
+        launched = packed_mod.LAUNCHES - before
+        pl = packed_mod.packed_lws_sweeps(r0, i0, st, th, micro, p.batch_inner_passes,
+                                          p.inner_scheme, backend="torch")
+        held(f"K5 {label}: LWS({fsize}, {fshift}), Q={st.Q}, {tuple(r0.shape)}, {sweeps} "
+             f"sweeps alpha=1 (plan {plan.threads} threads x {plan.bins} elements, ring / "
+             f"table / centre / sums in shared memory {plan.ring:d}{plan.table:d}"
+             f"{plan.centre:d}{plan.sums:d}, scratch {plan.scratch} pairs per CTA)",
+             k, pl, a0, launched, 1)
     return worst
 
 
-def packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod):
+def k5_report(label, packed_mod, ptxas, st, F, micro, ms, steps):
+    """Print a K5 run's microseconds per step (`steps` serial steps per CTA:
+    ceil(T / micro) groups x (1 + passes) per live sweep), its launch plan
+    and its kernel's registers and spills; return them for the kernels
+    line."""
+    wt = packed_mod.packed_weights(st)
+    G = int(wt.dks.numel())
+    plan = packed_mod.packed_plan(F, st.Q, st.L, micro, G, wt.period)
+    args = (4, 5, plan.bins, int(plan.shared)) if plan.fixed else (0, 0, 0, 0)
+    key = "lws_packed_kernelI" + "".join(
+        f"L{'i' if i < 3 else 'b'}{v}E" for i, v in enumerate(args)) + "E"
+    found = [v for k, v in ptxas.items() if key in k]
+    regs = found[0] if found else {}
+    us = 1e3 * ms / steps
+    print(f"  K5 {label}: {ms:.2f} ms, {steps} steps per CTA -> {us:.3f} us per step; plan: "
+          f"{plan.threads} threads x {plan.bins} elements (stride {plan.stride}, sharing a "
+          f"bin {plan.shared}), {plan.slots} ring slots, ring / "
+          f"table ({G} live taps x P = {wt.period}) / centre buffers / sums in shared memory "
+          f"{plan.ring} / {plan.table} / {plan.centre} / {plan.sums}, {plan.bytes} B, scratch "
+          f"{plan.scratch} pairs; kernel lws_packed_kernel<{', '.join(map(str, args))}>: "
+          f"{regs.get('registers')} registers, spill stores {regs.get('spill_stores')} B, "
+          f"loads {regs.get('spill_loads')} B", flush=True)
+    return dict(us_per_step=us, steps_per_cta=steps, threads=plan.threads,
+                elements_per_thread=plan.bins, stride=plan.stride, shared_bin=plan.shared,
+                slots=plan.slots, ring=plan.ring,
+                table=plan.table, centre=plan.centre, sums=plan.sums, live_taps=G,
+                period=wt.period, smem_bytes=plan.bytes, scratch=plan.scratch,
+                kernel=list(args), registers=regs.get("registers"),
+                spill_stores=regs.get("spill_stores"), spill_loads=regs.get("spill_loads"))
+
+
+def packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod, ptxas):
     """K5 through its entry point (lws_torch.ops.packed_lws_sweeps) on the
     batch path's input, (32, 628, 257) x 100 sweeps at alpha=100 from zero
     phase, at micro 4 (micro 1 is K1, timed on the batch path): launches,
-    time, bound, consistency, the plain group update's time. Returns the
-    kernels-line entry."""
+    time, bound, consistency, the plain group update's time. Then its time
+    at micro 2 and 4 on the music path's batch-stage input (32, 316, 513):
+    the online stage's output of bench.py's pipeline workload (magnitudes,
+    consistency). Returns the kernels-line entry."""
     dev = torch.device(DEVICE)
     B, secs, iters, micro = MAIN_B, MAIN_SECONDS, MAIN_SWEEPS, 4
     x = make_batch(B, int(secs * SAMPLE_RATE), SAMPLE_RATE, np.random.default_rng(0))
@@ -791,11 +900,50 @@ def packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod):
           f"{ms:.2f} ms ({serial} steps per CTA -> {1e3 * ms / serial:.3f} us per step); "
           f"plain {plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} "
           f"flop, {nbytes:.4g} B); consistency {float(c.mean()):.3f} dB")
+    plan = k5_report("batch path input, micro 4", packed_mod, ptxas, st, int(F), micro, ms,
+                     serial)
+
+    # the music path's batch stage input: its no-future and online stages'
+    # output (the K1 and K3 launches here are no part of a counted run)
+    mproc = lws_torch.LWS(1024, 256, mode="music", device=dev)
+    mx = make_batch(MUSIC_B, int(MUSIC_SECONDS * SAMPLE_RATE), SAMPLE_RATE,
+                    np.random.default_rng(MUSIC_SEED))
+    mr, mi = mproc.stft_ri(mx)
+    mamp = torch.sqrt(mr * mr + mi * mi)
+    stage_in = mproc.online_lws(mproc.nofuture_lws((mamp, torch.zeros_like(mamp))))
+    mthr = torch.as_tensor(lws_torch.get_thresholds(mproc.batch_iterations, 100, 0.1, 1),
+                           dtype=torch.float32, device=dev)
+    mst, mip = mproc._st_batch, mproc.batch_inner_passes
+    mT, mF = mamp.shape[-2:]
+    mlive = sweeps_mod.sweep_schedule(*stage_in, mthr)[2]
+    m_bound, m_by, m_flops, _, _ = sweep_bound(mst, mip, mlive, mT, mF, MUSIC_B)
+    music = {}
+    for m in (2, 4):
+        mout = packed_mod.packed_lws_sweeps(*stage_in, mst, mthr, m, mip, mproc.inner_scheme)
+        cm = mproc.get_consistency(mout)
+        m_rel = float(((torch.sqrt(mout[0] ** 2 + mout[1] ** 2) - mamp).abs()
+                       / mamp.clamp_min(1e-30)).max())
+        s.check(m_rel <= TOL_MAGNITUDE and bool(torch.isfinite(cm).all()),
+                f"K5 micro={m} on the music batch stage input {tuple(mamp.shape)}: "
+                f"magnitudes {m_rel:.2e} (tol {TOL_MAGNITUDE:g}), consistency mean "
+                f"{float(cm.mean()):.3f} dB")
+        m_ms = cuda_ms(torch, lambda: packed_mod.packed_lws_sweeps(
+            *stage_in, mst, mthr, m, mip, mproc.inner_scheme), 3)
+        steps = int(mlive.sum(dim=1).max()) * (-(-mT // m)) * (1 + mip)
+        print(f"K5 on the music batch stage input {tuple(mamp.shape)} x "
+              f"{mproc.batch_iterations} sweeps, micro={m}: {m_ms:.2f} ms; bound "
+              f"{m_bound:.4f} ms by {m_by} ({m_flops:.4g} flop); consistency "
+              f"{float(cm.mean()):.3f} dB")
+        music[f"micro{m}"] = dict(ms=m_ms, bound_ms=m_bound, bound_by=m_by,
+                                  consistency_db=float(cm.mean()),
+                                  plan=k5_report(f"music batch stage, micro {m}", packed_mod,
+                                                 ptxas, mst, int(mF), m, m_ms, steps))
     return dict(name="lws_packed", route="cuda", source="lws_torch/csrc/lws_sweeps.cu",
                 replaces="lws_tpu/ops/pallas_packed.py:683", launches=launches, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 micro=micro, shape=[B, int(T), int(F)], sweeps=iters, serial_steps=serial,
-                consistency_db=float(c.mean()))
+                consistency_db=float(c.mean()), plan=plan,
+                music_stage=dict(shape=[MUSIC_B, int(mT), int(mF)], **music))
 
 
 def cuda_ms(torch, fn, reps):
@@ -1477,9 +1625,9 @@ def main():
     worst_online = online_cases(s, torch, lws_torch, online_mod)
     worst_chunk = chunk_cases(s, torch, lws_torch, online_mod)
     worst_new = new_online_cases(s, torch, lws_torch, online_mod)
-    worst_packed = packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod)
+    worst_packed = packed_cases(s, torch, lws_torch, sweeps_mod, packed_mod, seg_mod)
     batch_sweeps = main_path(s, torch, lws_torch, sweeps_mod, ptxas)
-    packed_entry = packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod)
+    packed_entry = packed_timing(s, torch, lws_torch, sweeps_mod, packed_mod, ptxas)
     online_entry, music_sweeps = music_path(s, torch, lws_torch, sweeps_mod, online_mod,
                                             ptxas)
     chunk_entry = stream_path(s, torch, lws_torch, online_mod, ptxas)

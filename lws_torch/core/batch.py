@@ -101,25 +101,31 @@ def packed_sweeps(
     micro: int = 1,
     inner_passes: int = 1,
     inner_scheme: str = "jacobi",
+    halo: tuple | None = None,
+    mean_amp: torch.Tensor | None = None,
 ):
     """len(thresholds) sweeps over (..., T, F) in groups of `micro` frames:
-    the plain version of lws_tpu's packed_lws_sweeps (_sweeps_kernel).
+    the plain version of lws_tpu's grouped sweeps (packed_lws_sweeps'
+    _sweeps_kernel, and tiled_lws_sweeps' group update at micro > 1).
 
     micro = 1 is the frame-by-frame Gauss-Seidel sweep, `lws_sweeps`.
     micro > 1 updates frames [g*micro, (g+1)*micro) together, each from the
     state as it was before the group (block Jacobi inside a group, so an
-    off-centre tap on a frame of the same group reads its old value), with
-    the edge-replica halos and the per-item mean. The in-frame passes run
-    over the group's centre rows and are always jacobi passes (fallback: the
-    original centre row), whatever `inner_scheme` says, as lws_tpu's group
-    update does (pallas_packed.py:646-665); `inner_passes` counts only where
-    the stencil has a centre row. The last group stops at frame T-1 (the
-    `valid` mask). A sweep no bin passes is skipped; the skip is exact.
+    off-centre tap on a frame of the same group reads its old value). The
+    in-frame passes run over the group's centre rows and are always jacobi
+    passes (fallback: the original centre row), whatever `inner_scheme`
+    says, as lws_tpu's group update does (pallas_packed.py:646-665);
+    `inner_passes` counts only where the stencil has a centre row. The last
+    group stops at frame T-1 (the `valid` mask). `halo` (top_r, top_i,
+    bot_r, bot_i), each (..., Q-1, F), replaces the edge-replica time halos
+    and `mean_amp` (...,) the per-item mean magnitude, as in `lws_sweeps`
+    and lws_tpu's tiled_lws_sweeps. A sweep no bin passes is skipped; the
+    skip is exact.
     """
     micro = max(1, int(micro))
     if micro == 1:
-        return lws_sweeps(sr, si, st, thresholds, order="gs",
-                          inner_passes=inner_passes, inner_scheme=inner_scheme)
+        return lws_sweeps(sr, si, st, thresholds, order="gs", inner_passes=inner_passes,
+                          inner_scheme=inner_scheme, halo=halo, mean_amp=mean_amp)
     thresholds = torch.as_tensor(thresholds, dtype=sr.dtype, device=sr.device)
     if thresholds.shape[0] == 0:
         return sr, si
@@ -127,11 +133,18 @@ def packed_sweeps(
     Q1 = Q - 1
     T, F = sr.shape[-2:]
     amp = torch.sqrt(sr * sr + si * si)
-    mean_amp = amp.mean(dim=(-2, -1), keepdim=True)
+    if mean_amp is None:
+        mean_amp = amp.mean(dim=(-2, -1), keepdim=True)
+    else:
+        mean_amp = torch.as_tensor(mean_amp, device=sr.device)[..., None, None].to(amp.dtype)
     amax = amp.amax(dim=(-2, -1), keepdim=True)
     xr0, xi0 = freq_extend(sr, si, L)
-    top_r, bot_r = make_time_halos(xr0, Q)
-    top_i, bot_i = make_time_halos(xi0, Q)
+    if halo is None:
+        top_r, bot_r = make_time_halos(xr0, Q)
+        top_i, bot_i = make_time_halos(xi0, Q)
+    else:
+        top_r, top_i = freq_extend(halo[0], halo[1], L)
+        bot_r, bot_i = freq_extend(halo[2], halo[3], L)
     xr = time_extend(xr0, top_r, bot_r)
     xi = time_extend(xi0, top_i, bot_i)
 

@@ -1,10 +1,12 @@
 // Device helpers shared by the LWS kernels (lws_sweeps.cu, lws_online.cu).
 //
-// Both kernels keep a frame row as F interior bins and read its frequency
-// margins by conjugate reflection, and both end a bin update with the same
-// magnitude-restoring epilogue as the plain version's phase_update
-// (lws_torch/core/stencil.py). Build with -fmad=false so each product and
-// sum rounds on its own, as the plain version rounds them.
+// The kernels keep a frame row as F interior bins and read its frequency
+// margins by conjugate reflection (in device memory) or keep the reflected
+// margins stored beside it (interleaved (re, im) rows in shared memory),
+// and all end a bin update with the same magnitude-restoring epilogue as
+// the plain version's phase_update (lws_torch/core/stencil.py). Build with
+// -fmad=false so each product and sum rounds on its own, as the plain
+// version rounds them.
 
 #pragma once
 
@@ -45,8 +47,21 @@ __device__ __forceinline__ void phase_update(float tr, float ti, float a,
   }
 }
 
-inline int threads_for(int F) {
-  return F >= kMaxThreads ? kMaxThreads : ((F + 31) / 32) * 32;
+// Bin n of an interleaved row (bin j at index j + L) and the margin cells
+// that reflect it: index L - n for 1 <= n <= L, and 2(F-1) - n + L for
+// F-1-L <= n <= F-2, imaginary part negated (read_bin's reflection, stored
+// once instead of branched on per tap).
+__device__ __forceinline__ void put_cbin(float2* row, int n, int F, int L, float vr,
+                                         float vi) {
+  row[n + L] = float2{vr, vi};
+  if (n >= 1 && n <= L) row[L - n] = float2{vr, -vi};
+  if (n >= F - 1 - L && n <= F - 2) row[2 * (F - 1) - n + L] = float2{vr, -vi};
+}
+
+// acc += w * v, complex, in the order every version of the kernels uses.
+__device__ __forceinline__ void cmac(float& ar, float& ai, float2 w, float2 v) {
+  ar = ar + (w.x * v.x - w.y * v.y);
+  ai = ai + (w.x * v.y + w.y * v.x);
 }
 
 }  // namespace

@@ -183,23 +183,6 @@ struct Window {
   }
 };
 
-// Bin n of an interleaved shared-memory row (bin j at index j + L) and the
-// margin cells that reflect it: index L - n for 1 <= n <= L, and
-// 2(F-1) - n + L for F-1-L <= n <= F-2, imaginary part negated (read_bin's
-// reflection, stored once instead of branched on per tap).
-__device__ __forceinline__ void put_cbin(float2* row, int n, int F, int L, float vr,
-                                         float vi) {
-  row[n + L] = float2{vr, vi};
-  if (n >= 1 && n <= L) row[L - n] = float2{vr, -vi};
-  if (n >= F - 1 - L && n <= F - 2) row[2 * (F - 1) - n + L] = float2{vr, -vi};
-}
-
-// acc += w * v, complex, in the order every version of the kernels uses.
-__device__ __forceinline__ void cmac(float& ar, float& ai, float2 w, float2 v) {
-  ar = ar + (w.x * v.x - w.y * v.y);
-  ai = ai + (w.x * v.y + w.y * v.x);
-}
-
 // Row `slot` of the window, bin n + dk - L (dk: the tap's column in 0..2L).
 template <bool kRing>
 __device__ __forceinline__ float2 ring_tap(const Window& w, int slot, int n, int dk) {

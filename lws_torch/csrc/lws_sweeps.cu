@@ -83,81 +83,71 @@
 // PyTorch version (lws_torch/core/stencil.py). read_bin and the epilogue
 // are shared with the online kernel (lws_common.cuh).
 //
-// The grouped kernel (lws_packed_kernel) replaces the TPU kernel
-// lws_tpu/ops/pallas_packed.py::packed_lws_sweeps (_sweeps_kernel) at
-// micro > 1, its group_update: it updates `micro` frames at a time, every
-// one from the state as it was before the group (block Jacobi inside a
-// group), with threads over the group's micro x F bins: the off-centre tap
-// sums of the whole group into shared memory, a barrier, then the in-frame
-// jacobi passes over the group's centre rows (lws_tpu's group update runs
-// jacobi passes whatever the scheme), a barrier. It keeps the tap helpers
-// below (off_centre_taps, centre_update), which read the state from device
-// memory. At micro = 1 packed_lws_sweeps is K1's frame order, and its
-// wrapper launches lws_sweeps_kernel. It is bound like K1 by its serial
-// chain, with micro times fewer barrier steps per sweep.
+// The grouped kernel (K5, lws_packed_kernel) replaces the TPU kernel
+// lws_tpu/ops/pallas_packed.py::packed_lws_sweeps (_sweeps_kernel, its
+// group_update) at micro > 1, and serves lws_tpu's other entry points at
+// micro > 1 too (tiled_lws_sweeps, segmented_lws_sweeps): it updates
+// `micro` frames at a time, every one from the state as it was before the
+// group (block Jacobi inside a group); the in-frame passes over the group's
+// centre rows are jacobi passes whatever the scheme, as lws_tpu's group
+// update runs them. At micro = 1 its wrapper launches lws_sweeps_kernel.
+//   - The group's window, padded rows start .. start+micro+2Q-3, lives in a
+//     ring of 2 micro + 2(Q-1) rows slotted by absolute padded row, each
+//     row (re, im) interleaved with its L conjugate-reflected margin bins
+//     (put_cbin), so a tap is one 8-byte shared-memory read with no branch.
+//     While a group computes, each thread loads the next group's `micro`
+//     new rows for its elements into slots this group does not read; they
+//     are visible after the group's last barrier. The group's new centre
+//     rows go to their ring slots and to device memory.
+//   - Weights: a table of the stencil's live taps (off-centre rows in dr
+//     order, then the centre row, each in dk order) by P columns, bin n
+//     reading column n mod P: P = Q where the weights repeat with period Q
+//     in the bin index (summarized weights, Stencil.period: LWS(512, 128)'s
+//     60 live taps x 4 columns, 1.9 KB, against 158 KB of per-bin planes at
+//     F = 257), else P = F (ops/online.py::weight_table builds it for K3 /
+//     K4 and for K5). Dead taps are not summed.
+//   - The micro x F elements (frame j, bin n) of a group are strided over
+//     threads (bins = ceil(micro F / 768) per thread on round_up(ceil(micro
+//     F / bins), 32) threads, e = tid, tid + threads, ...), so a warp loads
+//     contiguous bins of a row; each element's (j, n) is computed once.
+//     Where H F threads fit, H = ceil(micro / bins), the compile-time
+//     kernel strides them by H F instead: a thread's elements are frames
+//     h, h + H, ... of one bin and share each weight read (micro 4 at F =
+//     257: 514 threads, frames h and h + 2).
+//   - The compile-time kernel, (Q, L) = (4, 5) with P = Q at 1-3 elements
+//     per thread (micro 2 and 4 at F = 257 and 513), keeps each element's
+//     off-centre sums, original centre value and amp in registers across
+//     the passes. A full row of taps (the batch stencil's outer rows) loads
+//     its 11 weights and values at once, then sums them; a partial row (the
+//     centre row's 2 live taps, rows 1 and 5's 7) walks its live-tap list,
+//     loading no dead tap. A group is one barrier step for the off-centre
+//     taps with the first pass (both read only the ring's old rows) and one
+//     per further pass, the passes ping-ponging between two shared centre
+//     buffers of `micro` rows, the last one writing the ring and device
+//     memory (no pass re-reads the original centre row from device memory).
+//   - Every other geometry (any Q <= 16, L and micro, fractional weights)
+//     runs the run-time kernel: the same steps with run-time loops over
+//     the elements and the live-tap lists, the off-centre sums kept per
+//     element in memory, the last pass's rows committed to the ring and
+//     device memory after a barrier. The ring, the table, the centre
+//     buffers and the sums each sit in shared memory where they fit, else
+//     in a device-memory scratch the wrapper allocates (the table: where it
+//     is), read with the same arithmetic.
+//   Each bin sums its live taps in the order the previous K5 summed every
+//   tap (off-centre in (dr, dk) order, centre in dk order, phase_update):
+//   a dead tap adds +-0 to a sum that is never -0, so with -fmad=false the
+//   result is the same bit for bit (port_tools/cuda_on_cpu.py --old-packed
+//   and port_tools/packed_timing.py hold the two to it). The launch plan
+//   is packed_plan below; lws_packed_plan exports it, and
+//   lws_torch/ops/packed.py::packed_plan mirrors it.
+// K5 is bound like K1 by its serial chain: ceil(T / micro) groups per live
+// sweep, each (1 + passes) steps of the old count, on B CTAs.
 
 #include <cuda_runtime.h>
 
 #include "lws_common.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// K5's tap helpers: the state read from device memory.
-
-template <bool kSmemWeights>
-__device__ __forceinline__ float load_w(const float* w, int idx) {
-  if (kSmemWeights) return w[idx];
-  return __ldg(w + idx);
-}
-
-// Off-centre taps of frame m at bin n: the sum over dr != Q-1 and dk of
-// W[dr, dk, n] * S(m+dr-Q+1, n+dk-L), in (dr, dk) order, read from the
-// padded state (frame m's row is m+Q-1).
-template <bool kSmemWeights>
-__device__ __forceinline__ void off_centre_taps(const float* Xr, const float* Xi,
-                                                const float* Wr, const float* Wi,
-                                                int m, int n, int F, int Q1, int K,
-                                                int L, float& tr, float& ti) {
-  tr = 0.f;
-  ti = 0.f;
-  for (int dr = 0; dr < 2 * Q1 + 1; ++dr) {
-    if (dr == Q1) continue;
-    const float* rr = Xr + (size_t)(m + dr) * F;
-    const float* ri = Xi + (size_t)(m + dr) * F;
-    for (int dk = 0; dk < K; ++dk) {
-      float br, bi;
-      read_bin(rr, ri, n + dk - L, F, br, bi);
-      const int w = (dr * K + dk) * F + n;
-      const float wr = load_w<kSmemWeights>(Wr, w);
-      const float wi = load_w<kSmemWeights>(Wi, w);
-      tr = tr + (wr * br - wi * bi);
-      ti = ti + (wr * bi + wi * br);
-    }
-  }
-}
-
-// One in-frame pass at bin n: the centre taps over the row (src_r, src_i),
-// added to the off-centre sum, then the epilogue; (nr, ni) hold the
-// fallback on entry.
-template <bool kSmemWeights>
-__device__ __forceinline__ void centre_update(const float* src_r, const float* src_i,
-                                              const float* Wr, const float* Wi, int n,
-                                              int F, int Q1, int K, int L, float tr,
-                                              float ti, float a, float th, float& nr,
-                                              float& ni) {
-  float cr = 0.f, ci = 0.f;
-  for (int dk = 0; dk < K; ++dk) {
-    float br, bi;
-    read_bin(src_r, src_i, n + dk - L, F, br, bi);
-    const int w = (Q1 * K + dk) * F + n;
-    const float wr = load_w<kSmemWeights>(Wr, w);
-    const float wi = load_w<kSmemWeights>(Wi, w);
-    cr = cr + (wr * br - wi * bi);
-    ci = ci + (wr * bi + wi * br);
-  }
-  phase_update(tr + cr, ti + ci, a, th, nr, ni);
-}
 
 // ---------------------------------------------------------------------------
 // K1: the launch plan.
@@ -530,132 +520,530 @@ SweepKernel pick_kernel(const SweepPlan& p, int Q) {
   return lws_sweeps_kernel<0, 0, 0, true, false>;
 }
 
-// The grouped sweeps (K5) at micro > 1: the same state layout and
-// arguments as lws_sweeps_launch, frames updated `micro` at a time, jacobi
-// passes. Shared memory holds the off-centre sums and the centre-row
-// ping-pong of micro rows, then the weights when they fit.
-template <bool kSmemWeights>
-__global__ void __launch_bounds__(kMaxThreads)
-lws_packed_kernel(float* xr, float* xi, const float* __restrict__ amp,
-                  const float* __restrict__ wr_g, const float* __restrict__ wi_g,
-                  const float* __restrict__ thr, const int* __restrict__ live,
-                  int T, int F, int Q, int L, int iters, int micro, int passes,
-                  int has_centre) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x;
+// ---------------------------------------------------------------------------
+// K5: the launch plan.
+
+// Most threads of a K5 launch: the elements (frame, bin) of a group are
+// spread over at most this many. It is the kernels' launch bound, which
+// (with one block per SM) leaves them 80 registers a thread.
+constexpr int kPackedThreads = 768;
+
+struct PackedPlan {
+  int bins;          // elements of a group per thread, strided: tid, tid + stride, ...
+  int threads;       // round_up(ceil(micro F / bins), 32), or round_up(stride, 32)
+  int stride;        // threads, or H F with H = ceil(micro / bins) where a thread's
+                     // elements then share their bin (shared)
+  int width;         // float2 per ring or centre row: F and L margin bins each side
+  int slots;         // ring rows: 2 micro + 2(Q-1)
+  int ring;          // 1: the ring in shared memory (else in the device-memory scratch)
+  int table;         // 1: the weight table in shared memory (else read where it is)
+  int centre;        // 1: the two centre buffers of micro rows in shared memory
+  int sums;          // 1: the run-time kernel's off-centre sums in shared memory
+  int fixed;         // 1: the compile-time (4, 5) kernel runs
+  int shared;        // 1: (fixed) a thread's elements are frames h, h + H, ... of one bin
+  long long bytes;   // dynamic shared memory
+  long long scratch; // float2 per CTA in device memory: what does not fit shared memory
+};
+
+// The plan for F bins, (Q, L), `micro` frames a group and a table of G live
+// taps by P columns. Always in shared memory: the tap lists. The
+// compile-time kernel ((Q, L) = (4, 5), P = Q, at most 3 elements per
+// thread) needs the ring, the centre buffers and the table there too, and
+// keeps the off-centre sums in registers; otherwise the ring, the table,
+// the centre buffers and the sums each go to shared memory where they
+// still fit, in that order, and the rest (but the table) to the scratch.
+PackedPlan packed_plan(int F, int Q, int L, int micro, int G, int P) {
+  PackedPlan p;
+  const long long E = (long long)micro * F;
+  p.bins = (int)((E + kPackedThreads - 1) / kPackedThreads);
+  p.threads = (int)(((E + p.bins - 1) / p.bins + 31) / 32 * 32);
+  p.stride = p.threads;
+  p.shared = 0;
+  p.width = F + 2 * L;
+  p.slots = 2 * micro + 2 * (Q - 1);
+  const long long f2 = (long long)sizeof(float2);
+  const long long ring = f2 * p.slots * p.width;
+  const long long centre = f2 * 2 * micro * p.width;
+  const long long table = f2 * G * P;
+  const long long sums = f2 * E;
+  long long used = (long long)sizeof(int) * (3LL * (2 * Q - 1) + G);
+  p.fixed = Q == 4 && L == 5 && P == Q && p.bins <= 3 &&
+            used + ring + centre + table <= kSmemLimit;
+  if (p.fixed) {
+    p.ring = p.table = p.centre = 1;
+    p.sums = 0;
+    used += ring + centre + table;
+    // a thread's elements share their bin (and weights) where H F threads,
+    // H = ceil(micro / bins), take the stride H F
+    const int H = (micro + p.bins - 1) / p.bins;
+    p.shared = p.bins > 1 && (long long)H * F <= kPackedThreads;
+    p.stride = p.shared ? H * F : p.threads;
+    p.threads = p.shared ? (H * F + 31) / 32 * 32 : p.threads;
+  } else {
+    p.ring = used + ring <= kSmemLimit;
+    used += p.ring ? ring : 0;
+    p.table = used + table <= kSmemLimit;
+    used += p.table ? table : 0;
+    p.centre = used + centre <= kSmemLimit;
+    used += p.centre ? centre : 0;
+    p.sums = used + sums <= kSmemLimit;
+    used += p.sums ? sums : 0;
+  }
+  p.bytes = used;
+  p.scratch = ((p.ring ? 0 : ring) + (p.centre ? 0 : centre) +
+               (p.fixed || p.sums ? 0 : sums)) / f2;
+  return p;
+}
+
+bool packed_fits(const PackedPlan& p) { return p.bytes <= kSmemLimit; }
+
+struct PackedArgs {
+  float* xr;  // the padded state (B, T + 2(Q-1), F), updated in place
+  float* xi;
+  const float* amp;     // (B, T, F)
+  const float2* table;  // (G, P): live tap g, column p
+  const int* rows;      // (2Q-1, 3): per row of taps, its live-dk mask, first tap, count
+  const int* dks;       // (G): the dk of each live tap
+  const float* thr;     // (B, iters)
+  const int* live;      // (B, iters)
+  float2* scratch;      // (B, scratch) or null
+  long long scratch_per_cta;
+  int T, F, Q, L, iters, micro, n_pass, G, P, stride;
+  int width, slots, ring_smem, table_smem, centre_smem, sums_smem;  // from the plan
+};
+
+// One CTA's buffers: the ring (S, W), the centre buffers (2, micro, W), the
+// table (G, P), the run-time kernel's sums (micro, F) (shared memory or the
+// CTA's slice of the scratch), the tap lists (shared memory). Shared memory
+// holds, in order, those of the ring, centre buffers, table and sums that
+// it holds, then the lists; kFixed: the ring, centre buffers and table.
+template <bool kFixed>
+__device__ __forceinline__ void packed_buffers(float* smem, const PackedArgs& a, float2*& ring,
+                                               float2*& centre, const float2*& table,
+                                               float2*& sums, const int*& rows,
+                                               const int*& dks) {
   const int tid = threadIdx.x;
   const int nth = blockDim.x;
-  const int Q1 = Q - 1;
-  const int K = 2 * L + 1;
-  const int MF = micro * F;
-  const size_t plane = (size_t)(T + 2 * Q1) * F;
-  float* Xr = xr + b * plane;
-  float* Xi = xi + b * plane;
-  const float* A = amp + (size_t)b * T * F;
-
-  float* s_tr = smem;  // off-centre tap sums of the group, (micro, F)
-  float* s_ti = smem + MF;
-  float* s_row[2][2] = {{smem + 2 * MF, smem + 3 * MF},  // centre rows, ping-pong
-                        {smem + 4 * MF, smem + 5 * MF}};
-  const float* Wr = wr_g;
-  const float* Wi = wi_g;
-  if (kSmemWeights) {
-    const int nw = (2 * Q - 1) * K * F;
-    float* s_wr = smem + 6 * MF;
-    float* s_wi = s_wr + nw;
-    for (int i = tid; i < nw; i += nth) {
-      s_wr[i] = __ldg(wr_g + i);
-      s_wi[i] = __ldg(wi_g + i);
-    }
-    __syncthreads();
-    Wr = s_wr;
-    Wi = s_wi;
+  float2* at = reinterpret_cast<float2*>(smem);
+  float2* sc = a.scratch ? a.scratch + blockIdx.x * a.scratch_per_cta : nullptr;
+  const long long n_ring = (long long)a.slots * a.width;
+  const long long n_centre = 2LL * a.micro * a.width;
+  if (kFixed || a.ring_smem) {
+    ring = at;
+    at += n_ring;
+  } else {
+    ring = sc;
+    sc += n_ring;
   }
+  if (kFixed || a.centre_smem) {
+    centre = at;
+    at += n_centre;
+  } else {
+    centre = sc;
+    sc += n_centre;
+  }
+  if (kFixed || a.table_smem) {
+    for (int i = tid; i < a.G * a.P; i += nth) at[i] = __ldg(a.table + i);
+    table = at;
+    at += a.G * a.P;
+  } else {
+    table = a.table;
+  }
+  sums = nullptr;
+  if (!kFixed) {
+    if (a.sums_smem) {
+      sums = at;
+      at += (long long)a.micro * a.F;
+    } else {
+      sums = sc;
+    }
+  }
+  int* lists = reinterpret_cast<int*>(at);
+  const int nr = 3 * (2 * a.Q - 1);
+  for (int i = tid; i < nr; i += nth) lists[i] = __ldg(a.rows + i);
+  for (int i = tid; i < a.G; i += nth) lists[nr + i] = __ldg(a.dks + i);
+  rows = lists;
+  dks = lists + nr;
+}
 
-  const int n_pass = has_centre ? passes : 0;
+// A sweep's first window: padded rows 0 .. n_rows-1 into ring slots 0 ..
+// n_rows-1 (n_rows <= slots).
+__device__ __forceinline__ void load_window(float2* ring, const float* Xr, const float* Xi,
+                                            int n_rows, int F, int L, int W) {
+  for (int i = threadIdx.x; i < n_rows * F; i += blockDim.x) {
+    const int r = i / F;
+    const int n = i - r * F;
+    put_cbin(ring + (size_t)r * W, n, F, L, Xr[(size_t)r * F + n], Xi[(size_t)r * F + n]);
+  }
+}
 
-  for (int it = 0; it < iters; ++it) {
-    if (__ldg(live + b * iters + it) == 0) continue;  // uniform over the CTA
-    const float th = __ldg(thr + b * iters + it);
-    for (int start = 0; start < T; start += micro) {
-      const int gF = (T - start < micro ? T - start : micro) * F;  // the last group stops at T-1
-
-      for (int e = tid; e < gF; e += nth) {
-        const int j = e / F;
-        const int n = e - j * F;
-        const int m = start + j;
-        float tr, ti;
-        off_centre_taps<kSmemWeights>(Xr, Xi, Wr, Wi, m, n, F, Q1, K, L, tr, ti);
-        s_tr[e] = tr;
-        s_ti[e] = ti;
-        s_row[0][0][e] = Xr[(size_t)(m + Q1) * F + n];
-        s_row[0][1][e] = Xi[(size_t)(m + Q1) * F + n];
+// One row of live taps of the compile-time kernel for the thread's KNB
+// elements, KK = 2L+1: element k's row at row[k] (row[k][dk] is bin
+// n_k + dk - L), its weights from column col[k] (the row's live taps at
+// table indices first .. first + count - 1, in dk order). A full row
+// (every tap live: the batch stencil's outer rows) loads its KK weights
+// and an element's KK values at once, then sums them; a partial one (the
+// centre row's 2 live taps, the 7 of rows 1 and 5) walks its live taps.
+// kShared: the elements share their bin, so each weight is loaded once for
+// all of them. The branch is uniform over the CTA.
+template <int KK, int KP, int KNB, bool kShared>
+__device__ __forceinline__ void packed_rows(const float2* const (&row)[KNB],
+                                            const float2* table, const int* dks,
+                                            const int (&col)[KNB], int first, int count,
+                                            float (&ar)[KNB], float (&ai)[KNB]) {
+  if (count == KK) {
+    float2 wt[KK];
+    if constexpr (kShared) {
+#pragma unroll
+      for (int dk = 0; dk < KK; ++dk) wt[dk] = table[(first + dk) * KP + col[0]];
+    }
+#pragma unroll
+    for (int k = 0; k < KNB; ++k) {
+      if constexpr (!kShared) {
+#pragma unroll
+        for (int dk = 0; dk < KK; ++dk) wt[dk] = table[(first + dk) * KP + col[k]];
       }
-      __syncthreads();  // every tap of the group is read before any write
+      float2 v[KK];
+#pragma unroll
+      for (int dk = 0; dk < KK; ++dk) v[dk] = row[k][dk];
+#pragma unroll
+      for (int dk = 0; dk < KK; ++dk) cmac(ar[k], ai[k], wt[dk], v[dk]);
+    }
+  } else {
+#pragma unroll 4
+    for (int g = first; g < first + count; ++g) {
+      const int dk = dks[g];
+#pragma unroll
+      for (int k = 0; k < KNB; ++k)
+        cmac(ar[k], ai[k], table[g * KP + col[kShared ? 0 : k]], row[k][dk]);
+    }
+  }
+}
 
-      if (n_pass == 0) {
-        // no centre taps (the no-future stencil): the epilogue alone
-        for (int e = tid; e < gF; e += nth) {
-          const int j = e / F;
-          const int n = e - j * F;
-          const size_t at = (size_t)(start + j + Q1) * F + n;
-          float nr = s_row[0][0][e], ni = s_row[0][1][e];
-          phase_update(s_tr[e], s_ti[e], __ldg(A + (size_t)(start + j) * F + n), th, nr,
-                       ni);
-          Xr[at] = nr;
-          Xi[at] = ni;
+// ---------------------------------------------------------------------------
+// K5: the compile-time kernel's sweeps, (Q, L) = (4, 5), P = Q, KNB elements
+// per thread in registers.
+template <int KNB, bool kShared>
+__device__ __forceinline__ void packed_fixed(const PackedArgs& a, float* Xr, float* Xi,
+                                             const float* __restrict__ A, float2* ring,
+                                             float2* centre, const float2* table,
+                                             const int* rows, const int* dks) {
+  constexpr int KQ = 4, KL = 5, KK = 2 * KL + 1, Q1 = KQ - 1, R = 2 * KQ - 1;
+  const int F = a.F;
+  const int T = a.T;
+  const int M = a.micro;
+  const int W = a.width;
+  const int S = a.slots;
+  const int E = M * F;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int b = blockIdx.x;
+
+  // this thread's elements e = tid + k * stride: frame j, bin n, column n
+  // mod Q; those past E (and the threads past the stride) are clamped to the
+  // last element and write nothing
+  int ej[KNB], en[KNB], col[KNB];
+  bool real[KNB];
+#pragma unroll
+  for (int k = 0; k < KNB; ++k) {
+    const int e = tid + k * a.stride;
+    real[k] = tid < a.stride && e < E;
+    const int c = real[k] ? e : E - 1;
+    ej[k] = c / F;
+    en[k] = c - ej[k] * F;
+    col[k] = en[k] % KQ;
+  }
+  const float2* rp[KNB];
+  const int cfirst = rows[3 * Q1 + 1];
+  const int ccount = rows[3 * Q1 + 2];
+
+  for (int it = 0; it < a.iters; ++it) {
+    if (__ldg(a.live + b * a.iters + it) == 0) continue;  // uniform over the CTA
+    const float th = __ldg(a.thr + b * a.iters + it);
+    load_window(ring, Xr, Xi, (M < T ? M : T) + 2 * Q1, F, KL, W);
+    __syncthreads();  // the window is complete
+
+    int base = 0;  // ring slot of padded row `start`
+    for (int start = 0; start < T; start += M) {
+      const int g = T - start < M ? T - start : M;
+      // the next group's new row for each element (row start+M+2Q-2+j,
+      // frame start+M+Q-1+j, which no frame before it has written this
+      // sweep): its loads overlap this group's taps; and amp
+      float fr[KNB], fi[KNB], am[KNB];
+#pragma unroll
+      for (int k = 0; k < KNB; ++k) {
+        if (real[k] && start + M + ej[k] < T) {
+          const size_t at = (size_t)(start + M + 2 * Q1 + ej[k]) * F + en[k];
+          fr[k] = Xr[at];
+          fi[k] = Xi[at];
+        }
+        const int m = start + ej[k] < T ? start + ej[k] : T - 1;
+        am[k] = __ldg(A + (size_t)m * F + en[k]);
+      }
+
+      // off-centre taps, in (dr, dk) order per element; one row at a time
+      float tr[KNB], ti[KNB];
+#pragma unroll
+      for (int k = 0; k < KNB; ++k) {
+        tr[k] = 0.f;
+        ti[k] = 0.f;
+      }
+#pragma unroll 1
+      for (int dr = 0; dr < R; ++dr) {
+        const int count = rows[3 * dr + 2];
+        if (dr == Q1 || count == 0) continue;
+        const int first = rows[3 * dr + 1];
+#pragma unroll
+        for (int k = 0; k < KNB; ++k) {
+          int sl = base + ej[k] + dr;
+          sl = sl >= S ? sl - S : sl;
+          rp[k] = ring + (size_t)sl * W + en[k];
+        }
+        packed_rows<KK, KQ, KNB, kShared>(rp, table, dks, col, first, count, tr, ti);
+      }
+
+      // the first pass (or, without centre taps, the epilogue alone), from
+      // the ring's centre rows: this group's old values, which every
+      // element falls back to
+      int cs[KNB];
+      float orr[KNB], ori[KNB], nr[KNB], ni[KNB], cr[KNB], ci[KNB];
+#pragma unroll
+      for (int k = 0; k < KNB; ++k) {
+        const int c = base + ej[k] + Q1;
+        cs[k] = c >= S ? c - S : c;
+        const float2 o = ring[(size_t)cs[k] * W + en[k] + KL];
+        orr[k] = o.x;
+        ori[k] = o.y;
+        nr[k] = o.x;
+        ni[k] = o.y;
+        rp[k] = ring + (size_t)cs[k] * W + en[k];
+        cr[k] = 0.f;
+        ci[k] = 0.f;
+      }
+      if (a.n_pass > 0)
+        packed_rows<KK, KQ, KNB, kShared>(rp, table, dks, col, cfirst, ccount, cr, ci);
+#pragma unroll
+      for (int k = 0; k < KNB; ++k) {
+        if (a.n_pass == 0)
+          phase_update(tr[k], ti[k], am[k], th, nr[k], ni[k]);
+        else
+          phase_update(tr[k] + cr[k], ti[k] + ci[k], am[k], th, nr[k], ni[k]);
+      }
+      // the next group's new rows land in slots this group does not read
+#pragma unroll
+      for (int k = 0; k < KNB; ++k) {
+        if (real[k] && start + M + ej[k] < T) {
+          int fs = base + M + 2 * Q1 + ej[k];
+          fs = fs >= S ? fs - S : fs;
+          put_cbin(ring + (size_t)fs * W, en[k], F, KL, fr[k], fi[k]);
         }
       }
-      for (int p = 0; p < n_pass; ++p) {
-        if (p > 0) __syncthreads();  // the rows this pass reads are complete
-        const float* src_r = s_row[p & 1][0];
-        const float* src_i = s_row[p & 1][1];
-        const bool last = p + 1 == n_pass;
-        float* dst_r = s_row[(p + 1) & 1][0];
-        float* dst_i = s_row[(p + 1) & 1][1];
-        for (int e = tid; e < gF; e += nth) {
-          const int j = e / F;
-          const int n = e - j * F;
-          const size_t at = (size_t)(start + j + Q1) * F + n;
-          // jacobi falls back to the original centre row (in device memory
-          // until the last pass writes it: thread e alone reads and writes
-          // that bin there)
-          float nr = Xr[at];
-          float ni = Xi[at];
-          centre_update<kSmemWeights>(src_r + j * F, src_i + j * F, Wr, Wi, n, F, Q1, K, L,
-                                      s_tr[e], s_ti[e],
-                                      __ldg(A + (size_t)(start + j) * F + n), th, nr, ni);
-          if (last) {
-            Xr[at] = nr;
-            Xi[at] = ni;
-          } else {
-            dst_r[e] = nr;
-            dst_i[e] = ni;
+
+      if (a.n_pass <= 1) {
+        __syncthreads();  // every read of the group's old rows precedes the writes
+#pragma unroll
+        for (int k = 0; k < KNB; ++k) {
+          if (real[k] && ej[k] < g) {
+            put_cbin(ring + (size_t)cs[k] * W, en[k], F, KL, nr[k], ni[k]);
+            Xr[(size_t)(start + ej[k] + Q1) * F + en[k]] = nr[k];
+            Xi[(size_t)(start + ej[k] + Q1) * F + en[k]] = ni[k];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < KNB; ++k)
+          if (real[k] && ej[k] < g)
+            put_cbin(centre + (size_t)ej[k] * W, en[k], F, KL, nr[k], ni[k]);
+        for (int p = 1; p < a.n_pass; ++p) {
+          __syncthreads();  // the rows this pass reads are complete
+          const float2* src = centre + (size_t)((p - 1) & 1) * M * W;
+          float2* dst = centre + (size_t)(p & 1) * M * W;
+          const bool last = p + 1 == a.n_pass;
+#pragma unroll
+          for (int k = 0; k < KNB; ++k) {
+            rp[k] = src + (size_t)ej[k] * W + en[k];
+            cr[k] = 0.f;
+            ci[k] = 0.f;
+          }
+          packed_rows<KK, KQ, KNB, kShared>(rp, table, dks, col, cfirst, ccount, cr, ci);
+#pragma unroll
+          for (int k = 0; k < KNB; ++k) {
+            // jacobi: the fallback is the original centre value
+            nr[k] = orr[k];
+            ni[k] = ori[k];
+            phase_update(tr[k] + cr[k], ti[k] + ci[k], am[k], th, nr[k], ni[k]);
+          }
+#pragma unroll
+          for (int k = 0; k < KNB; ++k) {
+            if (!(real[k] && ej[k] < g)) continue;
+            if (last) {
+              put_cbin(ring + (size_t)cs[k] * W, en[k], F, KL, nr[k], ni[k]);
+              Xr[(size_t)(start + ej[k] + Q1) * F + en[k]] = nr[k];
+              Xi[(size_t)(start + ej[k] + Q1) * F + en[k]] = ni[k];
+            } else {
+              put_cbin(dst + (size_t)ej[k] * W, en[k], F, KL, nr[k], ni[k]);
+            }
           }
         }
       }
       __syncthreads();  // the group is written before the next group reads it
+      base += M;
+      base = base >= S ? base - S : base;
     }
   }
 }
 
-long long smem_bytes(int F, int Q, int L, bool weights, int micro = 1) {
-  const long long base = 6LL * micro * F * (long long)sizeof(float);
-  return weights ? base + 2LL * (2 * Q - 1) * (2 * L + 1) * F * (long long)sizeof(float)
-                 : base;
+// ---------------------------------------------------------------------------
+// K5: the run-time kernel's sweeps: any Q, L, micro and table; the elements
+// in run-time loops, their off-centre sums in `sums`.
+
+// The live taps of row `row` (row[dk] is bin n + dk - L) in dk order, from
+// table column col: tap indices first .. first + count - 1.
+__device__ __forceinline__ void packed_taps(const float2* row, const float2* table,
+                                            const int* dks, int P, int col, int first,
+                                            int count, float& ar, float& ai) {
+  for (int g = first; g < first + count; ++g) cmac(ar, ai, table[(size_t)g * P + col], row[dks[g]]);
 }
 
-template <bool kSmemWeights>
-cudaError_t launch_packed(int B, int threads, int bytes, cudaStream_t s, float* xr,
-                          float* xi, const float* amp, const float* wr, const float* wi,
-                          const float* thr, const int* live, int T, int F, int Q, int L,
-                          int iters, int micro, int passes, int has_centre) {
-  cudaError_t err = cudaFuncSetAttribute(
-      lws_packed_kernel<kSmemWeights>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  lws_packed_kernel<kSmemWeights><<<B, threads, bytes, s>>>(
-      xr, xi, amp, wr, wi, thr, live, T, F, Q, L, iters, micro, passes, has_centre);
-  return cudaGetLastError();
+__device__ __forceinline__ void packed_runtime(const PackedArgs& a, float* Xr, float* Xi,
+                                               const float* __restrict__ A, float2* ring,
+                                               float2* centre, const float2* table,
+                                               float2* sums, const int* rows, const int* dks) {
+  const int F = a.F;
+  const int T = a.T;
+  const int M = a.micro;
+  const int W = a.width;
+  const int S = a.slots;
+  const int L = a.L;
+  const int P = a.P;
+  const int Q1 = a.Q - 1;
+  const int R = 2 * a.Q - 1;
+  const int tid = threadIdx.x;
+  const int nth = blockDim.x;
+  const int b = blockIdx.x;
+  const int cfirst = rows[3 * Q1 + 1];
+  const int ccount = rows[3 * Q1 + 2];
+  const size_t MW = (size_t)M * W;
+
+  for (int it = 0; it < a.iters; ++it) {
+    if (__ldg(a.live + b * a.iters + it) == 0) continue;  // uniform over the CTA
+    const float th = __ldg(a.thr + b * a.iters + it);
+    load_window(ring, Xr, Xi, (M < T ? M : T) + 2 * Q1, F, L, W);
+    __syncthreads();  // the window is complete
+
+    int base = 0;  // ring slot of padded row `start`
+    for (int start = 0; start < T; start += M) {
+      const int gF = (T - start < M ? T - start : M) * F;
+      // every element's off-centre taps and first step, from the ring's old
+      // rows, into centre buffer 0
+      for (int e = tid; e < gF; e += nth) {
+        const int j = e / F;
+        const int n = e - j * F;
+        const int col = n % P;
+        float tr = 0.f, ti = 0.f;
+        for (int dr = 0; dr < R; ++dr) {
+          if (dr == Q1) continue;
+          int sl = base + j + dr;
+          sl = sl >= S ? sl - S : sl;
+          packed_taps(ring + (size_t)sl * W + n, table, dks, P, col, rows[3 * dr + 1],
+                      rows[3 * dr + 2], tr, ti);
+        }
+        int cs = base + j + Q1;
+        cs = cs >= S ? cs - S : cs;
+        const float2 o = ring[(size_t)cs * W + n + L];
+        const float am = __ldg(A + (size_t)(start + j) * F + n);
+        float nr = o.x, ni = o.y;
+        if (a.n_pass == 0) {
+          phase_update(tr, ti, am, th, nr, ni);
+        } else {
+          sums[e] = float2{tr, ti};
+          float cr = 0.f, ci = 0.f;
+          packed_taps(ring + (size_t)cs * W + n, table, dks, P, col, cfirst, ccount, cr, ci);
+          phase_update(tr + cr, ti + ci, am, th, nr, ni);
+        }
+        put_cbin(centre + (size_t)j * W, n, F, L, nr, ni);
+      }
+      __syncthreads();  // the rows the next pass reads are complete
+      for (int p = 1; p < a.n_pass; ++p) {
+        const float2* src = centre + ((p - 1) & 1) * MW;
+        float2* dst = centre + (p & 1) * MW;
+        for (int e = tid; e < gF; e += nth) {
+          const int j = e / F;
+          const int n = e - j * F;
+          int cs = base + j + Q1;
+          cs = cs >= S ? cs - S : cs;
+          const float2 o = ring[(size_t)cs * W + n + L];  // old until the commit
+          const float2 s = sums[e];
+          float cr = 0.f, ci = 0.f;
+          packed_taps(src + (size_t)j * W + n, table, dks, P, n % P, cfirst, ccount, cr, ci);
+          float nr = o.x, ni = o.y;
+          phase_update(s.x + cr, s.y + ci, __ldg(A + (size_t)(start + j) * F + n), th, nr, ni);
+          put_cbin(dst + (size_t)j * W, n, F, L, nr, ni);
+        }
+        __syncthreads();  // the pass is written before the next one reads it
+      }
+      // commit the last rows to the ring and device memory, and load the
+      // next group's new rows into the slots this group did not read
+      const float2* done = centre + ((a.n_pass > 1 ? a.n_pass - 1 : 0) & 1) * MW;
+      for (int e = tid; e < gF; e += nth) {
+        const int j = e / F;
+        const int n = e - j * F;
+        int cs = base + j + Q1;
+        cs = cs >= S ? cs - S : cs;
+        const float2 v = done[(size_t)j * W + n + L];
+        put_cbin(ring + (size_t)cs * W, n, F, L, v.x, v.y);
+        Xr[(size_t)(start + j + Q1) * F + n] = v.x;
+        Xi[(size_t)(start + j + Q1) * F + n] = v.y;
+      }
+      const int next = T - start - M;
+      for (int e = tid; e < (next < M ? next : M) * F; e += nth) {
+        const int j = e / F;
+        const int n = e - j * F;
+        int fs = base + M + 2 * Q1 + j;
+        fs = fs >= S ? fs - S : fs;
+        const size_t at = (size_t)(start + M + 2 * Q1 + j) * F + n;
+        put_cbin(ring + (size_t)fs * W, n, F, L, Xr[at], Xi[at]);
+      }
+      __syncthreads();  // the group is written before the next group reads it
+      base += M;
+      base = base >= S ? base - S : base;
+    }
+  }
+}
+
+// K5. KQ, KL, KNB > 0: the compile-time kernel ((4, 5), KNB elements per
+// thread, sharing their bin where kShared); 0: the run-time one.
+template <int KQ, int KL, int KNB, bool kShared>
+__global__ void __launch_bounds__(kPackedThreads, 1) lws_packed_kernel(PackedArgs a) {
+  static_assert(KQ == 0 || (KQ == 4 && KL == 5 && KNB > 0), "one compile-time geometry");
+  extern __shared__ float smem[];
+  const int b = blockIdx.x;
+  const size_t plane = (size_t)(a.T + 2 * (a.Q - 1)) * a.F;
+  float* Xr = a.xr + b * plane;
+  float* Xi = a.xi + b * plane;
+  const float* A = a.amp + (size_t)b * a.T * a.F;
+  float2 *ring, *centre, *sums;
+  const float2* table;
+  const int *rows, *dks;
+  packed_buffers<(KQ > 0)>(smem, a, ring, centre, table, sums, rows, dks);
+  __syncthreads();  // the table and the tap lists are in place
+  if constexpr (KQ > 0) {
+    packed_fixed<KNB, kShared>(a, Xr, Xi, A, ring, centre, table, rows, dks);
+  } else {
+    packed_runtime(a, Xr, Xi, A, ring, centre, table, sums, rows, dks);
+  }
+}
+
+typedef void (*PackedKernel)(PackedArgs);
+
+PackedKernel pick_packed(const PackedPlan& p) {
+  if (p.fixed) {
+    if (p.bins == 1) return lws_packed_kernel<4, 5, 1, false>;
+    if (p.bins == 2)
+      return p.shared ? lws_packed_kernel<4, 5, 2, true> : lws_packed_kernel<4, 5, 2, false>;
+    return p.shared ? lws_packed_kernel<4, 5, 3, true> : lws_packed_kernel<4, 5, 3, false>;
+  }
+  return lws_packed_kernel<0, 0, 0, false>;
 }
 
 }  // namespace
@@ -717,34 +1105,73 @@ int lws_sweeps_plan(int F, int Q, int L, long long* out) {
                                                      : (int)cudaErrorInvalidValue;
 }
 
-// The grouped sweeps (K5) over the same padded state, `micro` >= 2 frames
-// per group, `passes` jacobi passes. Returns the cudaError_t of the launch
-// (0 on success); a shared-memory plan that does not fit one block is
+// K5's launch plan for (F, Q, L, micro) and a table of G live taps by P
+// columns into out[0..12]: elements per thread, threads, element stride,
+// row width, ring slots, ring, table, centre buffers and sums in shared
+// memory (0/1), fixed kernel (0/1), shared bins (0/1), shared-memory bytes,
+// scratch float2 per CTA. Returns 0 when it fits one block, else
 // cudaErrorInvalidValue.
-int lws_packed_launch(void* xr, void* xi, const void* amp, const void* wr,
-                      const void* wi, const void* thr, const void* live,
-                      int B, int T, int F, int Q, int L, int iters, int micro,
-                      int passes, int has_centre, void* stream) {
+int lws_packed_plan(int F, int Q, int L, int micro, int G, int P, long long* out) {
+  if (F < 1 || Q < 1 || L < 0 || micro < 1 || G < 0 || P < 1) return (int)cudaErrorInvalidValue;
+  const PackedPlan p = packed_plan(F, Q, L, micro, G, P);
+  const long long v[13] = {p.bins,  p.threads, p.stride, p.width, p.slots,
+                           p.ring,  p.table,   p.centre, p.sums,  p.fixed,
+                           p.shared, p.bytes,  p.scratch};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return packed_fits(p) ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// The grouped sweeps (K5) over the same padded state as lws_sweeps_launch,
+// `micro` >= 2 frames per group (a group past T holds T frames), `passes`
+// jacobi passes where the stencil has centre taps, the weights as a table
+// (G, P) with its tap lists (rows (2Q-1, 3), dks (G)); `scratch` holds B x
+// the plan's scratch float2 (may be null when that is 0). Returns the
+// cudaError_t of the launch (0 on success).
+int lws_packed_launch(void* xr, void* xi, const void* amp, const void* table,
+                      const void* rows, const void* dks, const void* thr, const void* live,
+                      void* scratch, int B, int T, int F, int Q, int L, int iters, int micro,
+                      int passes, int has_centre, int G, int P, void* stream) {
   if (B < 1 || T < 1 || Q < 1 || Q > kMaxQ || L < 0 || F < L + 1 || iters < 0 ||
-      micro < 2 || passes < 1) {
+      micro < 2 || passes < 1 || G < 0 || P < 1 || P > F) {
     return (int)cudaErrorInvalidValue;
   }
   if (iters == 0) return (int)cudaSuccess;
-  if (smem_bytes(F, Q, L, false, micro) > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const int threads = threads_for(micro * F);  // micro * F < kSmemLimit here
-  const bool stage = smem_bytes(F, Q, L, true, micro) <= kSmemLimit;
-  const int bytes = (int)smem_bytes(F, Q, L, stage, micro);
-  cudaStream_t s = (cudaStream_t)stream;
+  const int M = micro < T ? micro : T;
+  const PackedPlan p = packed_plan(F, Q, L, M, G, P);
+  if (!packed_fits(p) || (p.scratch > 0 && scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  PackedArgs a = {};
+  a.xr = (float*)xr;
+  a.xi = (float*)xi;
+  a.amp = (const float*)amp;
+  a.table = (const float2*)table;
+  a.rows = (const int*)rows;
+  a.dks = (const int*)dks;
+  a.thr = (const float*)thr;
+  a.live = (const int*)live;
+  a.scratch = (float2*)scratch;
+  a.scratch_per_cta = p.scratch;
+  a.T = T;
+  a.F = F;
+  a.Q = Q;
+  a.L = L;
+  a.iters = iters;
+  a.micro = M;
+  a.n_pass = has_centre ? passes : 0;
+  a.G = G;
+  a.P = P;
+  a.stride = p.stride;
+  a.width = p.width;
+  a.slots = p.slots;
+  a.ring_smem = p.ring;
+  a.table_smem = p.table;
+  a.centre_smem = p.centre;
+  a.sums_smem = p.sums;
+  const PackedKernel kernel = pick_packed(p);
   cudaError_t err =
-      stage ? launch_packed<true>(B, threads, bytes, s, (float*)xr, (float*)xi,
-                                  (const float*)amp, (const float*)wr, (const float*)wi,
-                                  (const float*)thr, (const int*)live, T, F, Q, L, iters,
-                                  micro, passes, has_centre)
-            : launch_packed<false>(B, threads, bytes, s, (float*)xr, (float*)xi,
-                                   (const float*)amp, (const float*)wr, (const float*)wi,
-                                   (const float*)thr, (const int*)live, T, F, Q, L, iters,
-                                   micro, passes, has_centre);
-  return (int)err;
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, p.threads, (size_t)p.bytes, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 const char* lws_sweeps_error_string(int err) {

@@ -2,8 +2,13 @@
 
 Counterpart of lws_tpu.ops.pallas_packed.tiled_lws_sweeps, without its
 TPU launch plan: there are no time tiles, sublane packs or lane folds, so
-bf16 storage, lane folding, tap chunks, micro > 1 and the lane skip are not
-carried over and raise. The wrapper
+bf16 storage, lane folding, tap chunks and the lane skip are not carried
+over and raise. `micro` is part of what lws_tpu computes, not a tile knob:
+at micro > 1 its tiled kernel runs block-Jacobi groups of `micro` frames,
+the grouped sweeps, which here run on the grouped sweep kernel K5
+(ops/packed.py, counted in its LAUNCHES) or, for CPU tensors and
+backend="torch", on their plain version (core.batch.packed_sweeps). At
+micro = 1 the wrapper
 
   - checks device, dtype, shapes and the stencil;
   - builds the padded state (B, T + 2(Q-1), F) whose Q-1 frozen halo rows
@@ -29,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.batch import lws_sweeps as plain_lws_sweeps
+from ..core.batch import packed_sweeps as plain_packed_sweeps
 from ..core.stencil import Stencil, _parse_colors
 from . import _build
 
@@ -105,8 +111,10 @@ def _library():
         lib.lws_sweeps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.lws_sweeps_plan.restype = ctypes.c_int
         lib.lws_packed_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.lws_packed_launch.restype = ctypes.c_int
+        lib.lws_packed_plan.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        lib.lws_packed_plan.restype = ctypes.c_int
         lib.lws_sweeps_error_string.argtypes = [ctypes.c_int]
         lib.lws_sweeps_error_string.restype = ctypes.c_char_p
     return lib
@@ -166,23 +174,34 @@ def tiled_lws_sweeps(
 
     `halo` (top_r, top_i, bot_r, bot_i), each (..., Q-1, F), replaces the
     edge-replica time halos; `mean_amp` (...,) replaces the per-item mean
-    magnitude (the same contract as lws_tpu's kernels). backend="auto"
-    launches the kernel for CUDA float32 tensors and runs the plain version
-    for CPU tensors; backend="torch" runs the plain version anywhere.
+    magnitude (the same contract as lws_tpu's kernels). `micro` > 1 runs
+    lws_tpu's grouped sweeps (block-Jacobi groups of `micro` frames, jacobi
+    in-frame passes whatever `inner_scheme` says) on the grouped sweep
+    kernel K5. backend="auto" launches the kernel for CUDA float32 tensors
+    and runs the plain version for CPU tensors; backend="torch" runs the
+    plain version anywhere.
     """
     reject_tpu_knobs("tiled_lws_sweeps",
-                     dict(storage=None, micro=1, lane_fold=1, tap_chunks=1, lane_skip=False),
-                     storage=storage, micro=micro, lane_fold=lane_fold,
-                     tap_chunks=tap_chunks, lane_skip=lane_skip)
+                     dict(storage=None, lane_fold=1, tap_chunks=1, lane_skip=False),
+                     storage=storage, lane_fold=lane_fold, tap_chunks=tap_chunks,
+                     lane_skip=lane_skip)
     if backend not in ("auto", "torch"):
         raise ValueError(f"lws_torch: backend must be 'auto' or 'torch', got {backend!r}")
+    micro = max(1, int(micro))
     if backend == "torch" or sr.device.type == "cpu":
+        if micro > 1:
+            return plain_packed_sweeps(sr, si, st, thresholds, micro, inner_passes,
+                                       inner_scheme, halo, mean_amp)
         return plain_lws_sweeps(sr, si, st, thresholds, order="gs",
                                 inner_passes=inner_passes,
                                 inner_scheme=inner_scheme, halo=halo,
                                 mean_amp=mean_amp)
     if sr.device.type != "cuda":
         raise ValueError(f"lws_torch: the sweep kernel runs on CUDA, got {sr.device}")
+    if micro > 1:
+        from . import packed  # packed imports this module
+        return packed.launch_grouped(sr, si, st, thresholds, micro, inner_passes, halo,
+                                     mean_amp)
     return _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo,
                    mean_amp)
 
@@ -196,7 +215,7 @@ def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
             f"F={sr.shape[-1]}, Q={st.Q}, L={st.L} ({plan.bytes} B against {SMEM_LIMIT}); "
             "use backend='torch' for the plain version")
     out, launched = launch_padded(
-        "lws_sweeps_launch", sr, si, st, thresholds, halo, mean_amp,
+        "lws_sweeps_launch", sr, si, st, thresholds, halo, mean_amp, (st.Wr, st.Wi),
         _schedule_args(st, inner_passes, inner_scheme))
     LAUNCHES += launched
     return out
@@ -211,13 +230,17 @@ def kernel_plan(F: int, Q: int, L: int) -> SweepPlan:
     return SweepPlan(v[0], v[1], v[2], bool(v[3]), v[4], v[5], bool(v[6]), v[7])
 
 
-def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, schedule):
+def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, weights, schedule,
+                  scratch=None):
     """Check the inputs, build the padded state and the schedule, and run
     csrc/lws_sweeps.cu's `entry` (lws_sweeps_launch or lws_packed_launch)
-    once with `schedule` (its int arguments after `iters`). Returns the
-    output pair and whether a kernel was launched (not for zero sweeps).
-    The callers check the geometry each kernel takes (K1: sweep_plan; K5:
-    Q <= MAX_Q and packed_supported)."""
+    once with the pointers of `weights` after amp (K1: st.Wr, st.Wi; K5:
+    its weight table and tap lists) and `schedule` (its int arguments after
+    `iters`). `scratch`, for K5: the float2 each CTA keeps in device memory
+    (its plan's), allocated here and passed after the thresholds' live
+    flags (null when 0). Returns the output pair and whether a kernel was
+    launched (not for zero sweeps). The callers check the geometry each
+    kernel takes (K1: sweep_plan; K5: packed_plan)."""
     dev = sr.device
     for name, t in (("sr", sr), ("si", si), ("st.Wr", st.Wr), ("st.Wi", st.Wi)):
         if t.dtype != torch.float32:
@@ -255,17 +278,20 @@ def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, schedule):
         else:
             x[:, :Q1] = halo[h_top].reshape(B, Q1, F)
             x[:, Q1 + T:] = halo[h_bot].reshape(B, Q1, F)
-    wr = st.Wr.contiguous()
-    wi = st.Wi.contiguous()
+    weights = [w.contiguous() for w in weights]
     thr = thr.contiguous()
     live = live.contiguous()
+    extra = []
+    if scratch is not None:
+        buf = (torch.empty((B, int(scratch), 2), dtype=torch.float32, device=dev)
+               if scratch else None)
+        extra = [None if buf is None else buf.data_ptr()]
 
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, entry)(
-        xr.data_ptr(), xi.data_ptr(), amp.data_ptr(), wr.data_ptr(),
-        wi.data_ptr(), thr.data_ptr(), live.data_ptr(),
-        B, T, F, Q, L, iters, *schedule, stream)
+        xr.data_ptr(), xi.data_ptr(), amp.data_ptr(), *(w.data_ptr() for w in weights),
+        thr.data_ptr(), live.data_ptr(), *extra, B, T, F, Q, L, iters, *schedule, stream)
     if err != 0:
         msg = lib.lws_sweeps_error_string(err).decode()
         raise RuntimeError(f"lws_torch: {entry} failed: {msg} ({err})")

@@ -42,8 +42,9 @@ from . import _build
 from .lws_sweeps import SMEM_LIMIT
 
 __all__ = ["packed_rtisi_la", "online_chunk", "online_chunk_init", "ChunkState",
-           "online_supported", "online_weight_sets", "online_weights", "OnlineWeights",
-           "online_plan", "OnlinePlan", "check_online", "LAUNCHES", "CHUNK_LAUNCHES"]
+           "online_supported", "online_weight_sets", "online_weights", "weight_table",
+           "OnlineWeights", "online_plan", "OnlinePlan", "check_online", "LAUNCHES",
+           "CHUNK_LAUNCHES"]
 
 # Kernel launches so far (K3, K4); a path's run is read as a difference.
 LAUNCHES = 0
@@ -160,8 +161,8 @@ def check_online(F: int, Q: int, L: int, LA: int, dtype, chunk: bool = False) ->
 
 
 class OnlineWeights(NamedTuple):
-    """The weights of the 2+LA sets [st_ai, st_af, *st_la] as the kernels
-    read them."""
+    """The weights of S stencil sets as the kernels read them (the online
+    kernels: the 2+LA sets [st_ai, st_af, *st_la]; K5: one)."""
     table: torch.Tensor  # (G, P, 2), the stencils' dtype: (re, im) of live tap g at column p
     rows: torch.Tensor   # (S, 2Q-1, 3) int32: per set and row of taps, the bit mask
                          # of its live dk (0 where 2L+1 > 31), the index of its first
@@ -171,15 +172,16 @@ class OnlineWeights(NamedTuple):
     counts: np.ndarray   # (S, 2) host: live off-centre and centre taps per set
 
 
-def online_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> OnlineWeights:
-    """Build the weight table of the sets [st_ai, st_af, *st_la] on their
-    device: each set's live off-centre taps in (dr, dk) order, then its live
-    centre taps (from the host nz masks), by P columns, P = Q when every
-    set's weights repeat with period Q in the bin index (Stencil.period),
-    else F. Column p of tap (dr, dk) holds W[dr, dk, p], the same float32
-    values bin n reads at W[dr, dk, n] for n = p mod P."""
-    sets = [st_ai, st_af, *st_la]
-    Q, L, F = st_af.Q, st_af.L, st_af.n_bins
+def weight_table(sets: list[Stencil]) -> OnlineWeights:
+    """The weight table of the stencil sets `sets` (one Q, L and F) on their
+    device, as the kernels read it: each set's live off-centre taps in (dr,
+    dk) order, then its live centre taps (from the host nz masks), by P
+    columns, P = Q when every set's weights repeat with period Q in the bin
+    index (Stencil.period), else F. Column p of tap (dr, dk) holds W[dr, dk,
+    p], the same values bin n reads at W[dr, dk, n] for n = p mod P. The
+    online kernels take the 2+LA sets (online_weight_sets), the grouped
+    sweep kernel K5 one (ops/packed.py::packed_weights)."""
+    Q, L, F = sets[0].Q, sets[0].L, sets[0].n_bins
     R, K, c = 2 * Q - 1, 2 * L + 1, Q - 1
     P = Q if all(st.period == Q for st in sets) else F
     rows = np.zeros((len(sets), R, 3), dtype=np.int32)
@@ -194,7 +196,7 @@ def online_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> 
             drs += [dr] * len(live)
             dks += live
         counts[s] = int(st.nz.sum() - st.nz[c].sum()), int(st.nz[c].sum())
-    dev = st_af.Wr.device
+    dev = sets[0].Wr.device
     idx = [torch.as_tensor(v, dtype=torch.long, device=dev) for v in (which, drs, dks)]
     cols = torch.arange(P, device=dev)
     planes = []
@@ -204,6 +206,12 @@ def online_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> 
     table = torch.stack(planes, dim=-1).contiguous()
     return OnlineWeights(table, torch.as_tensor(rows, device=dev),
                          torch.as_tensor(np.asarray(dks, np.int32), device=dev), P, counts)
+
+
+def online_weight_sets(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> OnlineWeights:
+    """The weight table of the online kernels' sets [st_ai, st_af, *st_la]
+    (weight_table)."""
+    return weight_table([st_ai, st_af, *st_la])
 
 
 def online_weights(st_la: list[Stencil], st_ai: Stencil, st_af: Stencil) -> OnlineWeights:

@@ -16,8 +16,9 @@ magnitude (or the caller's `mean_amp`) repeated per segment, the true
 edges take the caller's `halo` when given, halos are exchanged before
 every block and never across utterances, and `iters % sweeps_per_exchange`
 sweeps run as a last, shorter block. Each block is one launch of K1
-(`tiled_lws_sweeps` with `halo=` and `mean_amp=`); the exchange is torch
-indexing on the device. CPU tensors and backend="torch" run the same
+(`tiled_lws_sweeps` with `halo=` and `mean_amp=`; at micro > 1 one launch
+of the grouped sweep kernel K5); the exchange is torch indexing on the
+device. CPU tensors and backend="torch" run the same
 blocks through the plain sweeps.
 """
 from __future__ import annotations
@@ -61,7 +62,8 @@ def segmented_lws_sweeps(
     `halo` (top_r, top_i, bot_r, bot_i), each (..., Q-1, F), replaces the
     edge-replica halos at the true edges; `mean_amp` (...,) replaces the
     whole-utterance mean magnitude. `micro` is passed to the sweep wrapper,
-    which takes only 1.
+    as lws_tpu passes it: at micro > 1 each block runs the grouped sweeps
+    (one launch of K5 per block on CUDA).
     """
     _k1.reject_tpu_knobs("segmented_lws_sweeps", _TPU_KNOBS, pack=pack, storage=storage,
                          frame_unroll=frame_unroll, window_carry=window_carry,

@@ -53,6 +53,7 @@ from lws_torch.ops import online as online_mod  # noqa: E402
 from lws_torch.ops import packed as packed_mod  # noqa: E402
 from online_timing import (bind_legacy, legacy_chunk, legacy_online,  # noqa: E402
                            legacy_weight_sets)
+from packed_timing import bind_legacy_packed, legacy_grouped  # noqa: E402
 
 SHIM = r"""
 #pragma once
@@ -204,23 +205,31 @@ def chunk_float64(lib, sr, si, state, means, st_la, st_ai, st_af, thresholds, n_
     return out_r, out_i, online_mod.ChunkState(*outs, state.seen + N)
 
 
-def grouped_float64(lib, sr, si, st, thresholds, micro, inner_passes):
+def grouped_float64(lib, sr, si, st, thresholds, micro, inner_passes, halo=None, mean=None):
     """K5 built in double, launched at micro > 1 (jacobi passes) on float64
-    tensors with the wrapper's own padded state and schedule."""
+    tensors with the wrapper's own padded state, schedule and weight table
+    (in float64), and room for the largest scratch."""
     B, T, F = sr.shape
     Q1 = st.Q - 1
-    amp, thr, live = sweeps_mod.sweep_schedule(sr, si, thresholds)
-    xr = torch.cat([sr[:, :1].expand(B, Q1, F), sr, sr[:, -1:].expand(B, Q1, F)], 1)
-    xi = torch.cat([si[:, :1].expand(B, Q1, F), si, si[:, -1:].expand(B, Q1, F)], 1)
-    xr, xi, thr = xr.contiguous(), xi.contiguous(), thr.contiguous()
-    lib.lws_packed_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
+    amp, thr, live = sweeps_mod.sweep_schedule(sr, si, thresholds, mean)
+    planes = []
+    for s, top, bot in ((sr, 0, 2), (si, 1, 3)):
+        edges = ((s[:, :1].expand(B, Q1, F), s[:, -1:].expand(B, Q1, F)) if halo is None
+                 else (halo[top], halo[bot]))
+        planes.append(torch.cat([edges[0], s, edges[1]], 1).contiguous())
+    wt = online_mod.weight_table([st])
+    plan = packed_mod.packed_plan(F, st.Q, st.L, min(micro, T), wt.dks.numel(), wt.period)
+    scratch = torch.empty((B, plan.slots * plan.width + (min(micro, T) + 1) * 3 * F * 2, 2),
+                          dtype=torch.float64)
+    lib.lws_packed_launch.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [
         ctypes.c_void_p]
-    ptrs = [t.data_ptr() for t in (xr, xi, amp, st.Wr, st.Wi, thr, live)]
+    ptrs = [t.data_ptr() for t in (*planes, amp, wt.table, wt.rows, wt.dks, thr.contiguous(),
+                                   live, scratch)]
     passes = max(1, inner_passes) if st.has_centre else 1
     err = lib.lws_packed_launch(*ptrs, B, T, F, st.Q, st.L, thresholds.shape[0], micro,
-                                passes, int(st.has_centre), None)
+                                passes, int(st.has_centre), wt.dks.numel(), wt.period, None)
     assert err == 0, err
-    return xr[:, Q1:Q1 + T], xi[:, Q1:Q1 + T]
+    return planes[0][:, Q1:Q1 + T], planes[1][:, Q1:Q1 + T]
 
 
 def chunked(step, sr, si, proc, thr, fixed_mean):
@@ -544,12 +553,129 @@ def report(what, k, p, A):
     return d / A.max()
 
 
+# K5's cases: (label, LWS arguments, stage, frames, micro, halo / mean_amp,
+# compare with the previous K5). "batch": 2 dense sweeps of the batch
+# stencil (3 jacobi passes at Q = 4, 1 at Q = 2); "nofuture": one sweep of
+# the v=-1 stencil (no centre row). Frame counts leave a ragged last group
+# unless noted. The previous K5 refused micro x F past 9,686 (its shared
+# memory), so F = 2049 at micro 5 is held to the plain version only.
+K5_CASES = (
+    ("Q=4 F=257 micro 2, 1 element per thread", dict(awin_or_fsize=512, fshift=128), "batch",
+     23, 2, False, True),
+    ("Q=4 F=257 micro 3, 2 elements per thread", dict(awin_or_fsize=512, fshift=128), "batch",
+     23, 3, False, True),
+    ("Q=4 F=257 micro 4, 2 elements per thread", dict(awin_or_fsize=512, fshift=128), "batch",
+     23, 4, False, True),
+    ("Q=4 F=257 micro 4, whole groups", dict(awin_or_fsize=512, fshift=128), "batch", 24, 4,
+     False, True),
+    ("no-future F=257 micro 2", dict(awin_or_fsize=512, fshift=128), "nofuture", 23, 2, False,
+     True),
+    ("no-future F=257 micro 4", dict(awin_or_fsize=512, fshift=128), "nofuture", 22, 4, False,
+     True),
+    ("Q=4 F=257 micro 4, halo= mean_amp=", dict(awin_or_fsize=512, fshift=128), "batch", 21, 4,
+     True, True),
+    ("Q=4 F=257 micro 8 > T", dict(awin_or_fsize=512, fshift=128), "batch", 6, 8, False, True),
+    ("Q=4 F=513 micro 4, 3 elements per thread", dict(awin_or_fsize=1024, fshift=256), "batch",
+     14, 4, False, True),
+    ("Q=4 F=513 micro 2, 2 elements of one bin per thread", dict(awin_or_fsize=1024, fshift=256),
+     "batch", 13, 2, False, True),
+    ("Q=2 color2x3 F=129 micro 3 (run-time kernel)", dict(awin_or_fsize=256, fshift=128),
+     "batch", 22, 3, False, True),
+    ("fractional weights F=289 micro 2 (run-time kernel, P = F)",
+     dict(awin_or_fsize=576, fshift=128), "batch", 21, 2, False, True),
+    ("Q=4 F=1025 micro 5 (run-time kernel, 7 elements per thread)",
+     dict(awin_or_fsize=2048, fshift=512), "batch", 12, 5, False, True),
+    ("Q=16 F=513 micro 2 (run-time kernel), halo= mean_amp=",
+     dict(awin_or_fsize=1024, fshift=64), "batch", 11, 2, True, True),
+    ("Q=4 no-future F=2049 micro 5 (ring in device memory)",
+     dict(awin_or_fsize=4096, fshift=1024), "nofuture", 11, 5, False, False),
+    ("Q=4 F=2049 micro 5 (ring in device memory)", dict(awin_or_fsize=4096, fshift=1024),
+     "batch", 11, 5, False, False),
+)
+
+
+def k5_cases(old_lib, lib64, rng):
+    """Each K5 case through the wrapper (ops.packed.launch_grouped) on the
+    new kernel, the previous one (where it takes the case) and the plain
+    version; then the new kernel built in double against the plain version
+    in float64. Returns (worst float32 vs plain, worst float64 vs plain,
+    both / max amp, every compared case bit-equal)."""
+    worst, worst64, equal = 0.0, 0.0, True
+    dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-2:], dtype=torch.float32)
+    nofuture = torch.tensor(lws_torch.get_thresholds(1, 1, 0.1, 1), dtype=torch.float32)
+    for label, kw, stage, frames, micro, edges, compare in K5_CASES:
+        proc = lws_torch.LWS(**kw, device="cpu")
+        F = proc.fftsize // 2 + 1
+        if F > 1025:  # a 1 s clip holds too few frames
+            A, sr, si = random_spec(F, frames, rng)
+        else:
+            A, sr, si = random_phase(proc, frames, rng)
+        st, th = ((proc._st_nofuture, nofuture) if stage == "nofuture"
+                  else (proc._st_batch, dense))
+        ip = proc.batch_inner_passes if stage == "batch" else 1
+        B, T, F = sr.shape
+        halo = mean = None
+        if edges:
+            Q1, scale = proc._Qi - 1, float(np.abs(A).mean())
+            halo = tuple(torch.tensor(rng.standard_normal((B, Q1, F)) * scale,
+                                      dtype=torch.float32) for _ in range(4))
+            mean = torch.tensor(rng.uniform(0.5, 2.0, B) * scale, dtype=torch.float32)
+        wt = packed_mod.packed_weights(st)
+        plan = packed_mod.packed_plan(F, st.Q, st.L, min(micro, T), wt.dks.numel(), wt.period)
+        k = packed_mod.launch_grouped(sr, si, st, th, micro, ip, halo, mean)
+        p = sweeps_mod.tiled_lws_sweeps(sr, si, st, th, ip, proc.inner_scheme, halo, mean,
+                                        backend="torch", micro=micro)
+        worst = max(worst, report(
+            f"K5 {label} {stage} {tuple(sr.shape)} (P={wt.period}, {wt.dks.numel()} live "
+            f"taps; {plan.bins} elements x {plan.threads} threads, ring / table / centre / "
+            f"sums in shared memory {plan.ring:d}{plan.table:d}{plan.centre:d}{plan.sums:d}, "
+            f"{'fixed' if plan.fixed else 'run-time'} kernel)", k, p, A))
+        if compare:
+            o = legacy_grouped(old_lib, sr, si, st, th, micro, ip, halo, mean)
+            same = torch.equal(k[0], o[0]) and torch.equal(k[1], o[1])
+            equal = equal and same
+            print(f"  vs the previous K5: {'bit-equal' if same else 'DIFFER'}", flush=True)
+        proc64 = lws_torch.LWS(**kw, device="cpu", dtype=torch.float64)
+        st64 = proc64._st_nofuture if stage == "nofuture" else proc64._st_batch
+        args64 = (sr.double(), si.double(), st64, th.double())
+        h64 = None if halo is None else tuple(h.double() for h in halo)
+        m64 = None if mean is None else mean.double()
+        k64 = grouped_float64(lib64, *args64, micro, ip, h64, m64)
+        p64 = sweeps_mod.tiled_lws_sweeps(*args64, ip, proc.inner_scheme, h64, m64,
+                                          backend="torch", micro=micro)
+        worst64 = max(worst64, report("  float64 build vs plain float64", k64, p64, A))
+    return worst, worst64, equal
+
+
+def packed_plan_matches():
+    """lws_packed_plan against ops.packed.packed_plan on a table of
+    geometries and tables."""
+    ok = True
+    for F in (6, 129, 257, 513, 1025, 2049, 8193, 16385):
+        for Q, L in ((4, 5), (2, 5), (16, 5), (8, 3)):
+            if F < L + 1:
+                continue
+            for micro in (1, 2, 3, 4, 5, 64):
+                for taps, period in ((None, None), (66, Q), (77, F)):
+                    mirror = packed_mod.packed_plan(F, Q, L, micro, taps, period)
+                    built = packed_mod.kernel_plan(F, Q, L, micro, taps, period)
+                    if mirror != built:
+                        ok = False
+                        print(f"K5 plan F={F} Q={Q} L={L} micro={micro} taps={taps} "
+                              f"P={period}: kernel {built} != mirror {mirror}")
+    print(f"K5 launch plan, kernel vs Python mirror: {'equal' if ok else 'DIFFER'}", flush=True)
+    return ok
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--build-dir", default=None,
                     help="where the g++ builds go (default: a temporary directory)")
     ap.add_argument("--old-k1", default="d38e7e7",
                     help="git revision of the previous K1 to hold the new one to bit for bit")
+    ap.add_argument("--old-packed", default="b1968d1",
+                    help="git revision of the previous K5 (per-bin weight planes, state in "
+                         "device memory) to hold the new one to bit for bit")
     ap.add_argument("--old-online", default="4c91317",
                     help="git revision of the previous K3 / K4 (per-bin weight planes) to "
                          "hold the new ones to bit for bit")
@@ -684,44 +810,22 @@ def main():
         worst_new, worst_new64, new_equal = new_geometries(lib64, old_online,
                                                            np.random.default_rng(11))
 
-        # K5: the grouped sweeps against the plain group update
-        worst_k5 = 0.0
-        dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-2:],
-                             dtype=torch.float32)
-        nofuture = torch.tensor(lws_torch.get_thresholds(1, 1, 0.1, 1), dtype=torch.float32)
-        for fsize, fshift in ((512, 128), (256, 128), (512 + 64, 128)):
-            proc = lws_torch.LWS(fsize, fshift, device="cpu")
-            A, sr, si = random_phase(proc, 23, rng)
-            for st, ip, scheme, th in ((proc._st_batch, proc.batch_inner_passes,
-                                        proc.inner_scheme, dense),
-                                       (proc._st_nofuture, 1, "jacobi", nofuture)):
-                for micro in (2, 3, 4):
-                    k = packed_mod._launch(sr, si, st, th, micro, ip, scheme)
-                    p = packed_mod.packed_lws_sweeps(sr, si, st, th, micro, ip, scheme,
-                                                     backend="torch")
-                    worst_k5 = max(worst_k5, report(
-                        f"grouped LWS({fsize}, {fshift}) "
-                        f"{'batch' if st is proc._st_batch else 'no-future'} {scheme} "
-                        f"passes={ip} micro={micro}", k, p, A))
-        print(f"worst float32 grouped {worst_k5:.3e}")
-        worst_k5_64 = 0.0
-        for fsize, fshift in ((512, 128), (256, 128)):
-            proc = lws_torch.LWS(fsize, fshift, device="cpu", dtype=torch.float64)
-            A, sr, si = random_phase(proc, 23, rng)
-            sr, si = sr.double(), si.double()
-            st = proc._st_batch
-            thr64 = dense.double()
-            for micro in (2, 4):
-                k = grouped_float64(lib_sw64, sr, si, st, thr64, micro, proc.batch_inner_passes)
-                p = packed_mod.packed_lws_sweeps(sr, si, st, thr64, micro,
-                                                 proc.batch_inner_passes, proc.inner_scheme)
-                worst_k5_64 = max(worst_k5_64, report(
-                    f"float64 grouped LWS({fsize}, {fshift}) micro={micro}", k, p, A))
-        print(f"worst float64 grouped {worst_k5_64:.3e}")
+        # K5: the plan, then each case against the previous K5 (bit for bit)
+        # and the plain group update (float32; the double build in float64)
+        _build.load = libs.__getitem__
+        packed_plan_ok = packed_plan_matches()
+        old_packed = bind_legacy_packed(build_cpu(
+            "lws_sweeps", out, csrc=old_sources(args.old_packed, out), tag="_old_packed"))
+        worst_k5, worst_k5_64, k5_equal = k5_cases(old_packed, lib_sw64,
+                                                   np.random.default_rng(13))
+        print(f"worst K5 vs plain: float32 {worst_k5:.3e}, float64 {worst_k5_64:.3e}; "
+              f"previous K5 ({args.old_packed}) "
+              f"{'bit-equal on every case' if k5_equal else 'DIFFERS'}")
         ok = (worst < 2e-3 and worst_chunk < 2e-3 and k3_equal and worst64 < 1e-9
               and old_equal and new_equal and online_plan_ok and worst_new < 2e-3
               and worst_new64 < 1e-9
-              and worst_k5 < 2e-3 and worst_k5_64 < 1e-9 and plan_ok and k1_equal
+              and worst_k5 < 2e-3 and worst_k5_64 < 1e-9 and k5_equal and packed_plan_ok
+              and plan_ok and k1_equal
               and worst_k1_64 < 1e-9)
         return 0 if ok else 1
 

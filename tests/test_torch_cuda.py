@@ -350,6 +350,42 @@ def test_grouped_kernel_matches_plain_and_k1(cuda_device, fsize, stage):
 
 
 @pytest.mark.cuda
+def test_micro_entry_points_run_on_k5(cuda_device):
+    """lws_tpu's other entry points at micro 2 run the grouped sweeps on K5:
+    tiled_lws_sweeps (one launch, equal to packed_lws_sweeps bit for bit,
+    and with halo= / mean_amp=) and segmented_lws_sweeps (one launch per
+    exchange block), each against its plain version."""
+    own = lws_torch.LWS(512, 128, device=cuda_device)
+    st, ip = own._st_batch, own.batch_inner_passes
+    A, sr, si = _random_phase(own, 101, cuda_device, seed=9)
+    thr = torch.tensor(lws_torch.get_thresholds(6, 1, 0.1, 1), dtype=torch.float32,
+                       device=cuda_device)
+    rng = np.random.default_rng(9)
+    B, _, F = sr.shape
+    halo = tuple(torch.tensor(rng.standard_normal((B, 3, F)) * float(A.mean()),
+                              dtype=torch.float32, device=cuda_device) for _ in range(4))
+    mean = torch.tensor(rng.uniform(0.5, 2.0, B) * float(A.mean()), dtype=torch.float32,
+                        device=cuda_device)
+    grouped = packed_mod.packed_lws_sweeps(sr, si, st, thr, 2, ip)
+    for kw in ({}, dict(halo=halo, mean_amp=mean)):
+        before = packed_mod.LAUNCHES, sweeps_mod.LAUNCHES
+        kr, ki = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, micro=2, **kw)
+        assert (packed_mod.LAUNCHES, sweeps_mod.LAUNCHES) == (before[0] + 1, before[1])
+        pr, pi = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, micro=2, backend="torch", **kw)
+        err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+        assert err <= TOL * A.max(), (kw.keys(), err)
+        if not kw:
+            assert torch.equal(kr, grouped[0]) and torch.equal(ki, grouped[1])
+    seg = dict(segments=2, sweeps_per_exchange=2, micro=2, inner_passes=ip)
+    before = packed_mod.LAUNCHES
+    kr, ki = seg_mod.segmented_lws_sweeps(sr, si, st, thr, **seg)
+    assert packed_mod.LAUNCHES == before + 3
+    pr, pi = seg_mod.segmented_lws_sweeps(sr, si, st, thr, backend="torch", **seg)
+    err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+    assert err <= TOL * A.max(), err
+
+
+@pytest.mark.cuda
 def test_segmented_kernel_matches_plain(cuda_device):
     """K2 on the kernel against K2 on the plain sweeps: two utterances in 4
     segments, an exchange every 2 sweeps over 5 sweeps (3 K1 launches)."""

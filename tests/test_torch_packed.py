@@ -96,9 +96,10 @@ def test_wrapper_cpu_path_skip_and_knobs(golden_q4, monkeypatch):
     (628, 257, 4, 5, 1, True),
     (628, 257, 4, 5, 4, True),
     (200_000, 2049, 4, 5, 1, True),   # T does not enter: the state is in device memory
-    (100, 2049, 4, 5, 4, True),       # 6 x 4 x 2049 floats = 196,704 B
-    (100, 2049, 4, 5, 5, False),      # 245,880 B > 232,448 B
+    (100, 2049, 4, 5, 4, True),
+    (100, 2049, 4, 5, 5, True),       # what does not fit shared memory sits in device memory
     (100, 257, 17, 5, 1, False),      # Q > MAX_Q
+    (100, 257, 17, 5, 2, False),      # Q > MAX_Q
     (100, 5, 4, 5, 1, False),         # F < L + 1
 ])
 def test_packed_supported(T, F, Q, L, micro, fits):

@@ -105,12 +105,17 @@ def test_wrapper_cpu_tensor_takes_plain_path_without_build(golden_q4, monkeypatc
 
 
 @pytest.mark.parametrize("knob", [dict(storage="bfloat16"), dict(lane_fold=2),
-                                  dict(tap_chunks=2), dict(micro=4), dict(lane_skip=True)])
+                                  dict(tap_chunks=2), dict(micro=4, lane_skip=True),
+                                  dict(lane_skip=True)])
 def test_wrapper_rejects_tpu_knobs(golden_q4, knob):
+    """The TPU launch knobs raise. micro is not one of them (micro > 1 runs
+    lws_tpu's grouped sweeps, tests/test_torch_packed_plan.py): beside a
+    knob, the error names the knob alone."""
     own = lws_torch.LWS(512, 128, device="cpu")
     A = torch.ones((4, 257))
-    with pytest.raises(ValueError, match="TPU launch knobs"):
+    with pytest.raises(ValueError, match="TPU launch knobs") as err:
         sweeps_mod.tiled_lws_sweeps(A, A, own._st_batch, torch.ones(1), **knob)
+    assert "micro" not in str(err.value)
 
 
 def test_plain_sweep_skip_is_exact(golden_q4):

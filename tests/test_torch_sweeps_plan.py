@@ -70,7 +70,8 @@ def test_k1_gate_takes_q32_and_rejects_tpu_knobs(monkeypatch):
     """The wrapper's launch path at Q=32 (no cap any more), with the library
     and the stream stubbed: it builds the padded state and launches once
     with Q=32; a plan past the shared-memory limit raises naming
-    backend='torch'; the TPU launch knobs still raise."""
+    backend='torch'; the TPU launch knobs still raise (micro is not one:
+    micro > 1 runs the grouped sweeps, tests/test_torch_packed_plan.py)."""
     calls = []
 
     def launch(*args):
@@ -99,7 +100,7 @@ def test_k1_gate_takes_q32_and_rejects_tpu_knobs(monkeypatch):
         sweeps_mod._launch(sr, si, st, thr, 1, "jacobi", None, None)
     assert len(calls) == 1
     with pytest.raises(ValueError, match="TPU launch knobs"):
-        sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, micro=4)
+        sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, lane_fold=2)
 
 
 def test_plain_q32_batch_matches_lws_tpu():
