@@ -62,7 +62,29 @@ Phases, in order:
      card, a 20 s prefix), (b) the seams (the plan's S = 2 against one
      segment on a 120 s prefix) and (c) the floor set by lws_tpu's own
      result on the 20 s prefix;
-  8. the kernels line (JSON), then the result line (JSON) last.
+  8. fast mode: LWS(512, 128, order="jacobi_mxu") on the batch path's
+     input (bench.py's fastmode row: no kernel, the plain whole-grid sweeps
+     with banded torch.matmul products), its wall and consistency against
+     order="jacobi" at precision=None, both orders after 5 sweeps from
+     random phases, and a pure tone at precision "high" (TF32) against None;
+  9. the vocoder path at full width: bench.py's vocoder row, a (1024, 223,
+     80) mel through mel_vocoder_pipeline (mel_to_linear, 100 batch sweeps
+     on K1 at Q = 8, F = 1025, 1024 CTAs), with the launch count of that one
+     run, audio-s/s, every tiled copy of the 16 unique utterances equal to
+     its source bit for bit (all CTAs, all waves), the consistency of the
+     first 16, K1's time, bound, plan and blocks per SM (the CUDA runtime's
+     occupancy query), and K1 against its plain version on 2 utterances;
+ 10. resumable: resumable_lws on the batch path's input in chunks of 25
+     sweeps, a fault injected after chunk 2, the resume from its checkpoint
+     (bit-equal to the uninterrupted chunked run), the single call, and the
+     witness of their gap: the same chunks on K1 given the input's time
+     halos and mean magnitude;
+ 11. gradients: autograd (backend="torch") through 3 sweeps of each order
+     and the iSTFT on 4 utterances with exact silence at both ends, a
+     waveform L2 loss back to the magnitudes (finite, nonzero), float32
+     held to float64 on the same input per well-conditioned utterance, and
+     the backend="auto" call that must refuse (K1 has no backward);
+ 12. the kernels line (JSON), then the result line (JSON) last.
 
 Every timed sweep-kernel (K1) run (the batch path, the music path's batch
 stage, the longform path and its case (a)) prints its microseconds per
@@ -90,6 +112,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -185,6 +208,44 @@ K5_GEOMETRIES = (
     ("F = 8193 at micro 2, ring and centre buffers in device memory", (16384, 4096), 2, 5.0,
      3),
 )
+
+# Fast mode: bench.py's fastmode row (bench.py:357-376), LWS(512, 128,
+# order="jacobi_mxu") on the batch path's input, held to order="jacobi":
+# consistency within TOL_JACOBI_DB at precision=None (full float32), and
+# the two within TOL_JACOBI_AMP x max amp after 5 sweeps from random phases.
+# The pure tone: PURE_SECONDS of PURE_HZ at 16 kHz, 100 sweeps at alpha=100,
+# jacobi_mxu at precision="high" (TF32) against None and against jacobi,
+# printed. On a pure tone the two orders' float32 roundings alone move the
+# result by more than TOL_JACOBI_DB (0.138 dB on an H100), so they are held
+# to each other in float64, to TOL_JACOBI_F64_DB.
+TOL_JACOBI_DB = 0.1
+TOL_JACOBI_AMP = 1e-3
+TOL_JACOBI_F64_DB = 1e-3
+PURE_SECONDS, PURE_HZ = 3.0, 440.0
+# The vocoder: bench.py's vocoder row (bench.py:181-210). 16 unique 2.5 s
+# mixtures at 22.05 kHz, seed 3, LWS(2048, 256) (Q = 8, F = 1025), an
+# 80-band Slaney mel, tiled to VOC_B utterances, then mel_to_linear and 100
+# batch sweeps on K1. K1 against its plain version on VOC_CASE_B utterances
+# from random phases, the schedule's last 3 sweeps.
+VOC_B, VOC_UNIQUE, VOC_SECONDS, VOC_RATE, VOC_SEED = 1024, 16, 2.5, 22050, 3
+VOC_FSIZE, VOC_FSHIFT, VOC_MELS, VOC_CASE_B = 2048, 256, 80, 2
+# Resumable: resumable_lws on the batch path's input in chunks of
+# RESUME_EVERY sweeps, a fault injected after chunk RESUME_FAULT_AFTER, the
+# run resumed from its checkpoint (kept under build/, which git ignores).
+# The resumed run equals the uninterrupted chunked run bit for bit and sits
+# within TOL_RESUME_DB of the single-call batch_lws.
+RESUME_EVERY, RESUME_FAULT_AFTER, TOL_RESUME_DB = 25, 2, 0.05
+# Gradients: GRAD_B utterances of the batch path's input with GRAD_SILENCE
+# seconds of exact silence at each end, GRAD_SWEEPS sweeps at alpha=1, a
+# waveform L2 loss back to the magnitudes, backend="torch" on the card.
+# Float64 on the same input is the witness: an utterance whose recovered
+# spectrogram agrees in both precisions to GRAD_FWD_COND x max amp has its
+# float32 gradient held to the float64 one to TOL_GRAD_F64 x max|g64|. On the
+# CPU (port_tools/gs_grad_witness.py) gs's forwards part by 1.3e-5, 1.7e-2, 9.4e-3
+# and 2.0 x max amp and its gradients by 3.4e-6, 2.6e-3 and 5.5e-3 on the
+# first three; the fourth is ill-conditioned in lws_tpu as well.
+GRAD_B, GRAD_SILENCE, GRAD_SWEEPS = 4, 0.25, 3
+GRAD_FWD_COND, TOL_GRAD_F64 = 0.1, 2e-2
 
 
 def make_batch(B, n, sr_hz, rng):
@@ -304,11 +365,17 @@ def k1_template(plan, Q):
     return (0, 0, 1 if plan.bins == 1 else 0, 1, 0)
 
 
-def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes):
+def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes, waves=1,
+              blocks_per_sm=None):
     """Print a K1 run's microseconds per barrier step and per frame
     (`frames` serial frames per CTA, 1 + passes steps each, 1 without centre
     taps), its launch plan and its kernel's registers and spills; return
-    them for the kernels line."""
+    them for the kernels line. Where the launch has more CTAs than the card
+    holds at once, `blocks_per_sm` is the CUDA runtime's occupancy of the
+    launched kernel (ops.lws_sweeps.kernel_occupancy) and `waves` the
+    rounds of CTAs that follow from it: the per-step and per-frame times
+    are then per wave, and `launch_us_per_frame` is the launch's time over
+    one CTA's frames, undivided."""
     plan = sweeps_mod.sweep_plan(F, st.Q, st.L)
     args = k1_template(plan, st.Q)
     key = "lws_sweeps_kernelI" + "".join(
@@ -316,13 +383,17 @@ def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes):
     found = [v for k, v in ptxas.items() if key in k]
     regs = found[0] if found else {}
     steps = frames * (1 + passes if st.has_centre else 1)
-    us_step, us_frame = 1e3 * ms / steps, 1e3 * ms / frames
+    us_launch = 1e3 * ms / frames
+    us_step, us_frame = 1e3 * ms / (steps * waves), us_launch / waves
     # weights one CTA reads from device memory (L2) per frame: the rows of
     # taps not staged, the centre row once per pass (8 bytes per tap and bin)
     K, rows = 2 * st.L + 1, plan.staged // (2 * st.L + 1)
     off_rows = 2 * st.Q - 2 - max(0, rows - 1)
     w_bytes = 8 * F * K * (off_rows + (passes if rows == 0 and st.has_centre else 0))
-    print(f"  K1 {label}: {ms:.2f} ms, {frames} frames x {steps // frames} steps per CTA -> "
+    print(f"  K1 {label}: {ms:.2f} ms, {frames} frames x {steps // frames} steps per CTA"
+          + (f", {waves} waves of CTAs ({blocks_per_sm} per SM by the runtime's occupancy "
+             f"query; {us_launch:.3f} us per frame over the launch)" if waves > 1 else "")
+          + f" -> "
           f"{us_step:.3f} us per step, {us_frame:.3f} us per frame; plan: {plan.threads} "
           f"threads x {plan.bins} bins, window ring in shared memory {plan.ring}, "
           f"{plan.staged}/{plan.taps} tap planes staged, {plan.bytes} B; weights from device "
@@ -330,8 +401,8 @@ def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes):
           f"achieved); kernel lws_sweeps_kernel<{', '.join(map(str, args))}>: "
           f"{regs.get('registers')} registers, spill stores {regs.get('spill_stores')} B, "
           f"loads {regs.get('spill_loads')} B")
-    return dict(us_per_step=us_step, us_per_frame=us_frame, frames_per_cta=frames,
-                threads=plan.threads, bins_per_thread=plan.bins, ring=plan.ring,
+    return dict(us_per_step=us_step, us_per_frame=us_frame, launch_us_per_frame=us_launch,
+                frames_per_cta=frames, waves=waves, blocks_per_sm=blocks_per_sm, threads=plan.threads, bins_per_thread=plan.bins, ring=plan.ring,
                 taps_staged=plan.staged, taps=plan.taps, smem_bytes=plan.bytes,
                 weight_bytes_per_frame=w_bytes, kernel=list(args),
                 registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
@@ -1604,6 +1675,421 @@ def longform_path(s, torch, lws_torch, sweeps_mod, seg_mod, ptxas):
                 floor_db=c_floor)
 
 
+def timed_wall(s, fn, reps):
+    """Median host-clock wall of fn() over reps runs, each ended by a
+    synchronise; returns (median seconds, last output)."""
+    walls, out = [], None
+    for _ in range(reps):
+        s.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        s.sync()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls)), out
+
+
+def fast_mode(s, torch, lws_torch, sweeps_mod):
+    """Phase 8: fast mode. LWS(512, 128, order="jacobi_mxu") on the batch
+    path's input (bench.py's fastmode row), then order="jacobi" on the same
+    input, and the pure tone at precision "high" against None. The Jacobi
+    orders run no kernel (plain whole-grid sweeps, the banded matmuls in
+    torch.matmul): the run counts no K1 launch. Returns the numbers."""
+    dev = torch.device(DEVICE)
+    B, secs, sr_hz, iters = MAIN_B, MAIN_SECONDS, SAMPLE_RATE, MAIN_SWEEPS
+    x = make_batch(B, int(secs * sr_hz), sr_hz, np.random.default_rng(0))
+    mxu = lws_torch.LWS(512, 128, order="jacobi_mxu", device=dev)
+    jac = lws_torch.LWS(512, 128, order="jacobi", device=dev)
+    prec0 = torch.get_float32_matmul_precision()
+
+    # one run of the fast-mode path, through the user entry points, counted
+    sweeps_mod.LAUNCHES = 0
+    sr, si = mxu.stft_ri(x)
+    amp = torch.sqrt(sr * sr + si * si)
+    pair = (amp, torch.zeros_like(amp))
+    c_in = mxu.get_consistency(pair)
+    out = mxu.batch_lws(pair)
+    c_m = mxu.get_consistency(out)
+    y = mxu.istft(out)
+    s.sync()
+    launched = sweeps_mod.LAUNCHES
+    print(f"fast mode: LWS(512, 128, order='jacobi_mxu') on {B} x {secs:g} s, spectrogram "
+          f"{tuple(amp.shape)}, {iters} sweeps, precision None (full float32)")
+    s.check(launched == 0, f"fast-mode run launched no sweep kernel (plain Jacobi sweeps, "
+            f"banded matmuls in torch.matmul): {launched} K1 launches")
+    mag_rel = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - amp).abs()
+                     / amp.clamp_min(1e-30)).max())
+    finite = bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()
+                  and torch.isfinite(y).all())
+    s.check(finite and mag_rel <= TOL_MAGNITUDE and tuple(y.shape) == (B, x.shape[-1]),
+            f"finite outputs, istft shape {tuple(y.shape)}, magnitudes preserved: max per-bin "
+            f"relative error {mag_rel:.2e} (tol {TOL_MAGNITUDE:g})")
+    wall_m, _ = timed_wall(s, lambda: mxu.batch_lws(pair), 3)
+    wall_j, out_j = timed_wall(s, lambda: jac.batch_lws(pair), 3)
+    c_j = jac.get_consistency(out_j)
+    dc = float((c_m - c_j).abs().max())
+    print(f"  consistency: input {float(c_in.mean()):.3f} dB -> jacobi_mxu "
+          f"{float(c_m.mean()):.4f} dB, jacobi {float(c_j.mean()):.4f} dB; batch_lws wall "
+          f"(median of 3): jacobi_mxu {1e3 * wall_m:.2f} ms -> {B * secs / wall_m:.1f} "
+          f"audio-s/s, jacobi {1e3 * wall_j:.2f} ms -> {B * secs / wall_j:.1f} audio-s/s")
+    s.check(dc <= TOL_JACOBI_DB, f"jacobi_mxu vs jacobi consistency at precision None, "
+            f"{iters} sweeps: max {dc:.4f} dB over {B} utterances (tol {TOL_JACOBI_DB})")
+    # the banded products' work: 4 real (B T, F + 2L) @ (F + 2L, F) products
+    # per row with a live tap, in each sweep some utterance passes
+    st = mxu._st_batch
+    thr = torch.as_tensor(lws_torch.get_thresholds(iters, 100, 0.1, 1), dtype=torch.float32,
+                          device=dev)
+    live = int(sweeps_mod.sweep_schedule(*pair, thr)[2].amax(dim=0).sum())
+    rows = int(st.nz.any(axis=1).sum())
+    T, F = amp.shape[-2:]
+    mm_flops = 2.0 * live * rows * 4 * B * T * (F + 2 * st.L) * F
+    print(f"  banded products: {live} live sweeps x {rows} rows x 4, {mm_flops:.4g} flop -> "
+          f"{1e3 * mm_flops / PEAK_F32_FLOPS:.2f} ms at the float32 peak "
+          f"({100 * mm_flops / PEAK_F32_FLOPS / wall_m:.1f}% of the jacobi_mxu wall)")
+
+    # both orders from the same random phases, 5 sweeps at alpha=1
+    r0, i0, _ = random_phases(torch, np.random.default_rng(12), sr, si)
+    thr5 = torch.as_tensor(lws_torch.get_thresholds(5, 1, 0.1, 1), dtype=torch.float32,
+                           device=dev)
+    from lws_torch.core.batch import lws_sweeps
+    a = lws_sweeps(r0, i0, mxu._st_batch, thr5, order="jacobi_mxu")
+    b = lws_sweeps(r0, i0, jac._st_batch, thr5, order="jacobi")
+    rel = float(torch.maximum((a[0] - b[0]).abs(), (a[1] - b[1]).abs()).max() / amp.max())
+    s.check(rel <= TOL_JACOBI_AMP, f"jacobi_mxu vs jacobi after 5 sweeps from random phases, "
+            f"{tuple(r0.shape)}: max|d|/max amp = {rel:.3e} (tol {TOL_JACOBI_AMP:g})")
+
+    # the pure tone: TF32 ("high") against full float32 and the elementwise order
+    n = int(PURE_SECONDS * sr_hz)
+    tone = (0.5 * np.sin(2 * np.pi * PURE_HZ * np.arange(n) / sr_hz))[None].astype(np.float32)
+    tr, ti = mxu.stft_ri(tone)
+    tamp = torch.sqrt(tr * tr + ti * ti)
+    tpair = (tamp, torch.zeros_like(tamp))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # precision="high" warns by design
+        tf32 = lws_torch.LWS(512, 128, order="jacobi_mxu", precision="high", device=dev)
+    mxu64, jac64 = (lws_torch.LWS(512, 128, order=o, dtype=torch.float64, device=dev)
+                    for o in ("jacobi_mxu", "jacobi"))
+    tone_db = {}
+    for label, p in (("jacobi_mxu None", mxu), ("jacobi_mxu high (TF32)", tf32),
+                     ("jacobi", jac), ("float64 jacobi_mxu", mxu64), ("float64 jacobi", jac64)):
+        tp = tuple(t.to(p.rdtype) for t in tpair)
+        wall, o = timed_wall(s, lambda: p.batch_lws(tp), 1)
+        tone_db[label] = (float(p.get_consistency(o)[0]), 1e3 * wall)
+    print("  pure tone (" + f"{PURE_SECONDS:g} s at {PURE_HZ:g} Hz, {tuple(tamp.shape)}, "
+          f"{iters} sweeps): " + ", ".join(f"{k} {v[0]:.4f} dB ({v[1]:.1f} ms)"
+                                           for k, v in tone_db.items()))
+    d64 = abs(tone_db["float64 jacobi_mxu"][0] - tone_db["float64 jacobi"][0])
+    s.check(d64 <= TOL_JACOBI_F64_DB, f"pure tone in float64: jacobi_mxu within "
+            f"{TOL_JACOBI_F64_DB:g} dB of jacobi: {d64:.3e} dB")
+    s.check(torch.get_float32_matmul_precision() == prec0,
+            f"the caller's float32 matmul precision is restored: "
+            f"{torch.get_float32_matmul_precision()!r} (was {prec0!r})")
+    return dict(shape=[B, int(amp.shape[-2]), int(amp.shape[-1])], sweeps=iters,
+                k1_launches=launched, jacobi_mxu_ms=1e3 * wall_m, jacobi_ms=1e3 * wall_j,
+                jacobi_mxu_audio_s_per_s=B * secs / wall_m,
+                jacobi_audio_s_per_s=B * secs / wall_j,
+                jacobi_mxu_db=float(c_m.mean()), jacobi_db=float(c_j.mean()),
+                banded_flops=mm_flops,
+                random_phase_rel=rel, pure_tone={k: v[0] for k, v in tone_db.items()})
+
+
+def vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas):
+    """Phase 9: the vocoder at full width (bench.py's vocoder row): mel
+    (VOC_B, 223, 80) -> mel_vocoder_pipeline (mel_to_linear, run_lws: 100
+    batch sweeps on K1 at Q = 8, F = 1025). Returns K1's numbers there."""
+    from lws_torch.mel import linear_to_mel, mel_filterbank
+    dev = torch.device(DEVICE)
+    uniq = make_batch(VOC_UNIQUE, int(VOC_SECONDS * VOC_RATE), VOC_RATE,
+                      np.random.default_rng(VOC_SEED))
+    proc = lws_torch.LWS(VOC_FSIZE, VOC_FSHIFT, device=dev)
+    sr, si = proc.stft_ri(uniq)
+    fb = mel_filterbank(VOC_MELS, VOC_FSIZE, VOC_RATE)
+    mel = linear_to_mel(torch.sqrt(sr * sr + si * si), fb)
+    mel = mel.repeat(VOC_B // VOC_UNIQUE, 1, 1).contiguous()  # bench.py's jnp.tile
+    B, T = mel.shape[:2]
+    secs = B * VOC_SECONDS
+
+    # one run of the vocoder path, through the user entry point, counted;
+    # CUDA events around K1's wrapper where the processor calls it
+    sweeps_mod.LAUNCHES = 0
+    with KernelTimer(torch, sys.modules["lws_torch.processor"], "tiled_lws_sweeps") as kt:
+        s.sync()
+        t0 = time.perf_counter()
+        out = lws_torch.mel_vocoder_pipeline(mel, proc, fb=fb, return_spec=True)
+        s.sync()
+        wall = time.perf_counter() - t0
+    launched = sweeps_mod.LAUNCHES
+    ms = kt.ms()
+    F = int(out[0].shape[-1])
+    print(f"vocoder path: LWS({VOC_FSIZE}, {VOC_FSHIFT}) (Q = {proc._Qi}, F = {F}), mel "
+          f"{tuple(mel.shape)} from {VOC_UNIQUE} unique {VOC_SECONDS:g} s mixtures at "
+          f"{VOC_RATE} Hz tiled to {B} (no cut of B), mel_vocoder_pipeline: mel_to_linear + "
+          f"{proc.batch_iterations} batch sweeps, batch_inner_passes={proc.batch_inner_passes}")
+    s.check(launched == 1 and len(kt.events) == 1,
+            f"lws_sweeps kernel launches in the vocoder run: {launched}")
+    lin = lws_torch.mel_to_linear(mel, fb).to(proc.rdtype)
+    mag_rel = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - lin).abs()
+                     / lin.clamp_min(1e-30)).max())
+    finite = bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all())
+    s.check(finite and mag_rel <= TOL_MAGNITUDE,
+            f"finite outputs, magnitudes = mel_to_linear's: max per-bin relative error "
+            f"{mag_rel:.2e} (tol {TOL_MAGNITUDE:g})")
+    # the mel is VOC_UNIQUE utterances tiled: every copy, in every CTA and
+    # every wave of the launch, must equal its source bit for bit
+    def tiles_equal(t):
+        v = t.view(B // VOC_UNIQUE, VOC_UNIQUE, *t.shape[1:])
+        return bool(torch.equal(v, v[:1].expand_as(v)))
+
+    lin_same = tiles_equal(lin)
+    out_same = [tiles_equal(o) for o in out]
+    s.check(all(out_same), f"vocoder output: all {B // VOC_UNIQUE} copies of the "
+            f"{VOC_UNIQUE} utterances equal their source bit for bit (real {out_same[0]}, "
+            f"imaginary {out_same[1]}; mel_to_linear's copies {lin_same})")
+    zero = torch.zeros_like(lin[:VOC_UNIQUE])
+    c0 = float(proc.get_consistency((lin[:VOC_UNIQUE], zero)).mean())
+    c16 = float(proc.get_consistency((out[0][:VOC_UNIQUE], out[1][:VOC_UNIQUE])).mean())
+    print(f"  pipeline wall {1e3 * wall:.1f} ms -> {secs / wall:.1f} audio-s/s, K1 "
+          f"{ms:.2f} ms of it; consistency of the first {VOC_UNIQUE}: "
+          f"{c0:.4f} dB (zero phase) -> {c16:.4f} dB")
+    s.check(c16 > c0 + 5, f"consistency rises: {c0:.4f} -> {c16:.4f} dB")
+
+    # K1's bound and plan for the stage's input
+    st, ip, scheme = proc._st_batch, proc.batch_inner_passes, proc.inner_scheme
+    thr = torch.as_tensor(lws_torch.get_thresholds(proc.batch_iterations, 100, 0.1, 1),
+                          dtype=torch.float32, device=dev)
+    live = sweeps_mod.sweep_schedule(lin, torch.zeros_like(lin), thr)[2]
+    bound_ms, bound_by, flops, nbytes, serial = sweep_bound(st, ip, live, T, F, B)
+    # blocks resident per SM: the CUDA runtime's occupancy query of the
+    # kernel this launch picked, at its threads and dynamic shared memory
+    per_sm = sweeps_mod.kernel_occupancy(F, st.Q, st.L)
+    waves = -(-B // (max(1, per_sm) * proc._n_sm))
+    s.check(per_sm >= 1, f"K1 at Q = {st.Q}, F = {F}: {per_sm} blocks per SM by "
+            f"cudaOccupancyMaxActiveBlocksPerMultiprocessor")
+    print(f"  K1 {ms:.2f} ms, bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} flop, "
+          f"{nbytes:.4g} B; live sweeps per utterance {int(live.sum(dim=1).min())}-"
+          f"{int(live.sum(dim=1).max())}); {B} CTAs on {proc._n_sm} SMs, {per_sm} resident "
+          f"per SM (CUDA runtime's occupancy query) -> {waves} waves")
+    plan = k1_report("vocoder path (Q = 8, F = 1025)", sweeps_mod, ptxas, st, F, ms,
+                     int(live.sum(dim=1).max()) * int(T), ip, waves=waves,
+                     blocks_per_sm=per_sm)
+
+    # K1 against its plain version on VOC_CASE_B utterances from random phases
+    r0, i0, camp = random_phases(torch, np.random.default_rng(13), lin[:VOC_CASE_B],
+                                 torch.zeros_like(lin[:VOC_CASE_B]))
+    dense = torch.as_tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-3:],
+                            dtype=torch.float32, device=dev)
+    kr, ki = sweeps_mod.tiled_lws_sweeps(r0, i0, st, dense, ip, scheme)
+    case_ms = cuda_ms(torch, lambda: sweeps_mod.tiled_lws_sweeps(r0, i0, st, dense, ip,
+                                                                 scheme), 3)
+    s.sync()
+    t0 = time.perf_counter()
+    pr, pi = sweeps_mod.tiled_lws_sweeps(r0, i0, st, dense, ip, scheme, backend="torch")
+    s.sync()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    d = float(torch.maximum((kr - pr).abs(), (ki - pi).abs()).max())
+    rel = d / float(camp.max())
+    s.check(np.isfinite(d) and rel <= TOL_CASE,
+            f"vocoder case: K1 vs plain at Q = 8, F = 1025, {tuple(r0.shape)}, 3 live "
+            f"sweeps from random phases: max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g}); "
+            f"kernel {case_ms:.2f} ms, plain {plain_ms:.1f} ms")
+    return dict(launches=launched, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+                shape=[B, int(T), F], mel_shape=list(mel.shape), sweeps=proc.batch_iterations,
+                serial_steps=serial, plan=plan, wall_ms=1e3 * wall, audio_s_per_s=secs / wall,
+                consistency_db=c16, consistency_in_db=c0,
+                case=dict(shape=list(r0.shape), sweeps=3, ms=case_ms, plain_ms=plain_ms,
+                          max_abs_err=d))
+
+
+class InjectedFault(RuntimeError):
+    """Raised by the resumable phase's progress callback."""
+
+
+def resumable_path(s, torch, lws_torch, sweeps_mod):
+    """Phase 10: resumable_lws on the batch path's input, RESUME_EVERY sweeps
+    a chunk on K1: an uninterrupted chunked run, a run faulted after chunk
+    RESUME_FAULT_AFTER, its resume from the checkpoint, and the single call."""
+    import shutil
+    from lws_torch.checkpoint import load_checkpoint
+    dev = torch.device(DEVICE)
+    B, secs, sr_hz = MAIN_B, MAIN_SECONDS, SAMPLE_RATE
+    x = make_batch(B, int(secs * sr_hz), sr_hz, np.random.default_rng(0))
+    proc = lws_torch.LWS(512, 128, device=dev)
+    sr, si = proc.stft_ri(x)
+    amp = torch.sqrt(sr * sr + si * si)
+    pair = (amp, torch.zeros_like(amp))
+    ck_dir = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+    os.makedirs(ck_dir, exist_ok=True)
+    path = os.path.join(ck_dir, "batch.npz")
+    n_chunks = -(-proc.batch_iterations // RESUME_EVERY)
+    kw = dict(checkpoint_path=path, checkpoint_every=RESUME_EVERY)
+    try:
+        sweeps_mod.LAUNCHES = 0
+        s.sync()
+        t0 = time.perf_counter()
+        ref = lws_torch.resumable_lws(proc, pair, **kw)
+        wall_ref = time.perf_counter() - t0
+        launched = sweeps_mod.LAUNCHES
+        print(f"resumable: resumable_lws(LWS(512, 128)) on {tuple(amp.shape)}, "
+              f"{proc.batch_iterations} sweeps in chunks of {RESUME_EVERY}; fault after chunk "
+              f"{RESUME_FAULT_AFTER}")
+        s.check(launched == n_chunks, f"lws_sweeps kernel launches in the uninterrupted "
+                f"chunked run: {launched} (one per chunk, {n_chunks})")
+
+        def bomb(done, total):
+            if done >= RESUME_FAULT_AFTER * RESUME_EVERY:
+                raise InjectedFault(f"injected after {done} of {total} sweeps")
+
+        faulted = False
+        try:
+            lws_torch.resumable_lws(proc, pair, progress=bomb, **kw)
+        except InjectedFault:
+            faulted = True
+        state = load_checkpoint(path)
+        at = None if state is None else state[2]
+        s.check(faulted and at == RESUME_FAULT_AFTER * RESUME_EVERY,
+                f"the injected fault stopped the run with a checkpoint at sweep {at}")
+        sweeps_mod.LAUNCHES = 0
+        s.sync()
+        t0 = time.perf_counter()
+        out = lws_torch.resumable_lws(proc, pair, **kw)
+        wall_res = time.perf_counter() - t0
+        resumed = sweeps_mod.LAUNCHES
+        same = all(np.array_equal(a, b) for a, b in zip(out, ref))
+        s.check(same and resumed == n_chunks - RESUME_FAULT_AFTER and not os.path.exists(path),
+                f"the resumed run ({resumed} launches) equals the uninterrupted chunked run "
+                f"bit for bit: {same}; checkpoint removed: {not os.path.exists(path)}")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+    wall_one, one = timed_wall(s, lambda: proc.batch_lws(pair), 1)
+    c_one = proc.get_consistency(one)
+    c_res = proc.get_consistency(tuple(torch.as_tensor(a, device=dev) for a in out))
+    # each chunk is a fresh stage call, which freezes its time halos (edge
+    # frame replicas) from its own input: from the second chunk on they
+    # carry recovered phases, where the single call keeps the zero-phase
+    # input's (lws_tpu's resumable_lws does the same). The path's number is
+    # the mean over the batch. The witness: the same chunks on K1 given the
+    # input's halos and mean magnitude, against the single call
+    st, ip, scheme, Q1 = proc._st_batch, proc.batch_inner_passes, proc.inner_scheme, proc._Qi - 1
+    zero = torch.zeros_like(amp)
+    halo = (amp[:, :1].repeat(1, Q1, 1), zero[:, :1].repeat(1, Q1, 1),
+            amp[:, -1:].repeat(1, Q1, 1), zero[:, -1:].repeat(1, Q1, 1))
+    thr = torch.as_tensor(lws_torch.get_thresholds(proc.batch_iterations, 100, 0.1, 1),
+                          dtype=torch.float32, device=dev)
+    w = (amp, zero)
+    for k in range(0, proc.batch_iterations, RESUME_EVERY):
+        w = sweeps_mod.tiled_lws_sweeps(*w, st, thr[k:k + RESUME_EVERY], ip, scheme,
+                                        halo=halo, mean_amp=amp.mean(dim=(-2, -1)))
+    c_halo = proc.get_consistency(w)
+    dc = abs(float(c_one.mean()) - float(c_res.mean()))
+    print(f"  walls: chunked {1e3 * wall_ref:.1f} ms, resumed ({n_chunks - RESUME_FAULT_AFTER} "
+          f"chunks) {1e3 * wall_res:.1f} ms, single batch_lws {1e3 * wall_one:.1f} ms; "
+          f"consistency chunked {float(c_res.mean()):.4f} dB, single call "
+          f"{float(c_one.mean()):.4f} dB; per utterance max |d| "
+          f"{float((c_one - c_res).abs().max()):.4f} dB")
+    print(f"  witness: the same {n_chunks} chunks on K1 with the input's time halos and mean "
+          f"magnitude: mean {float(c_halo.mean()):.4f} dB "
+          f"({abs(float(c_halo.mean()) - float(c_one.mean())):.4f} dB from the single call), "
+          f"per utterance max |d| {float((c_one - c_halo).abs().max()):.4f} dB")
+    s.check(dc <= TOL_RESUME_DB, f"resumed vs single-call batch_lws, mean consistency over "
+            f"{B} utterances: {dc:.4f} dB apart (tol {TOL_RESUME_DB})")
+    return dict(launches=launched, resumed_launches=resumed, chunks=n_chunks,
+                chunked_ms=1e3 * wall_ref, resumed_ms=1e3 * wall_res,
+                single_ms=1e3 * wall_one, consistency_db=float(c_res.mean()),
+                single_db=float(c_one.mean()),
+                utterance_max_db=float((c_one - c_res).abs().max()),
+                input_halo_db=float(c_halo.mean()),
+                input_halo_utterance_max_db=float((c_one - c_halo).abs().max()))
+
+
+def gradient_path(s, torch, lws_torch, sweeps_mod):
+    """Phase 11: autograd through the plain sweeps on the card. GRAD_B
+    utterances with exact silence at both ends, GRAD_SWEEPS sweeps, a
+    waveform L2 loss back to the magnitudes, for each order, backend="torch",
+    in float32 and, as the witness, in float64 on the same input; then the
+    same call under backend="auto", which must refuse.
+
+    The witness holds float32 to float64 per utterance where the forward is
+    well conditioned: the two precisions' recovered spectrograms agree to
+    GRAD_FWD_COND x max amp. An utterance whose forward does not (a tap sum
+    near zero that the frame-after-frame gs chain amplifies: lws_tpu's own
+    jax.grad blows up on it too, port_tools/gs_grad_witness.py) is printed with
+    both gradients' maxima and not held."""
+    dev = torch.device(DEVICE)
+    sr_hz = SAMPLE_RATE
+    x = make_batch(GRAD_B, int(MAIN_SECONDS * sr_hz), sr_hz, np.random.default_rng(0))
+    quiet = int(GRAD_SILENCE * sr_hz)
+    x[:, :quiet] = 0
+    x[:, -quiet:] = 0
+    thr = lws_torch.get_thresholds(GRAD_SWEEPS, 1, 0.1, 1)
+    res = {}
+    print(f"gradients: LWS(512, 128, backend='torch') float32 (and float64, the witness) on "
+          f"{GRAD_B} x {MAIN_SECONDS:g} s with {GRAD_SILENCE:g} s of silence at each end, "
+          f"{GRAD_SWEEPS} sweeps at alpha=1, loss mean((istft - x)^2)")
+
+    def run(order, dtype):
+        proc = lws_torch.LWS(512, 128, order=order, backend="torch", dtype=dtype, device=dev)
+        sr, si = proc.stft_ri(x.astype(np.float64) if dtype == torch.float64 else x)
+        amp0 = torch.sqrt(sr * sr + si * si)
+        amp = amp0.detach().requires_grad_()
+        sweeps_mod.LAUNCHES = 0
+        s.sync()
+        t0 = time.perf_counter()
+        out = proc.batch_lws((amp, torch.zeros_like(amp)), thresholds=thr)
+        y = proc.istft(out)
+        target = torch.as_tensor(x, device=dev, dtype=y.dtype)
+        loss = ((y[:, :x.shape[-1]] - target) ** 2).mean()
+        loss.backward()
+        s.sync()
+        return dict(wall=time.perf_counter() - t0, loss=float(loss.detach()), g=amp.grad,
+                    amp=amp0, out=tuple(o.detach() for o in out),
+                    zeros=int((amp0 == 0).sum()), launches=sweeps_mod.LAUNCHES)
+
+    for order in ("jacobi", "jacobi_mxu", "gs"):
+        r32, r64 = run(order, torch.float32), run(order, torch.float64)
+        g, g64 = r32["g"], r64["g"]
+        ok = bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        s.check(ok and r32["zeros"] > 0 and r32["launches"] == 0,
+                f"gradient, order={order!r}: {r32['zeros']} exactly-zero bins, loss "
+                f"{r32['loss']:.4e}, max|g| {float(g.abs().max()):.4e}, finite and nonzero; "
+                f"forward + backward {1e3 * r32['wall']:.1f} ms (float64 "
+                f"{1e3 * r64['wall']:.1f} ms); {r32['launches']} kernel launches")
+        per = []
+        for b in range(GRAD_B):
+            scale = float(r64["amp"][b].max())
+            fwd = max(float((r32["out"][k][b].double() - r64["out"][k][b]).abs().max())
+                      for k in (0, 1)) / scale
+            gm32, gm64 = float(g[b].abs().max()), float(g64[b].abs().max())
+            rel = float((g[b].double() - g64[b]).abs().max()) / gm64
+            per.append(dict(forward_rel=fwd, grad_max=gm32, grad_max_f64=gm64, grad_rel=rel,
+                            held=fwd <= GRAD_FWD_COND))
+        held = [b for b, p in enumerate(per) if p["held"]]
+        worst = max((per[b]["grad_rel"] for b in held), default=float("inf"))
+        print(f"  {order}: per utterance, float32 vs float64 forward max|d|/max amp, max|g| "
+              f"float32 / float64, max|dg|/max|g64|: " + "; ".join(
+                  f"{b}: {p['forward_rel']:.2e}, {p['grad_max']:.3e} / {p['grad_max_f64']:.3e}"
+                  f", {p['grad_rel']:.2e}" + ("" if p["held"] else " (forward ill-conditioned,"
+                                              " not held)") for b, p in enumerate(per)))
+        s.check(held and worst <= TOL_GRAD_F64,
+                f"gradient, order={order!r}, float32 vs the float64 witness on the "
+                f"{len(held)} of {GRAD_B} utterances whose forward agrees to "
+                f"{GRAD_FWD_COND:g} x max amp: max|dg|/max|g64| {worst:.2e} "
+                f"(tol {TOL_GRAD_F64:g})")
+        res[order] = dict(wall_ms=1e3 * r32["wall"], wall_f64_ms=1e3 * r64["wall"],
+                          loss=r32["loss"], loss_f64=r64["loss"],
+                          grad_max=float(g.abs().max()), zero_bins=r32["zeros"],
+                          utterances=per)
+    auto = lws_torch.LWS(512, 128, device=dev)
+    sr, si = auto.stft_ri(x)
+    amp = torch.sqrt(sr * sr + si * si).requires_grad_()
+    msg = ""
+    try:
+        auto.batch_lws((amp, torch.zeros_like(amp)), thresholds=thr)
+    except ValueError as e:
+        msg = str(e)
+    s.check("backend='torch'" in msg, f"backend='auto' (order 'gs', K1) on a tensor that "
+            f"requires grad raises: {msg[:120]!r}")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1632,12 +2118,18 @@ def main():
                                             ptxas)
     chunk_entry = stream_path(s, torch, lws_torch, online_mod, ptxas)
     longform = longform_path(s, torch, lws_torch, sweeps_mod, seg_mod, ptxas)
-    # K1: the longform path's run (this slice's path) at the top; the batch
-    # path's run and the music path's batch stage nested, each from its own
-    # run
+    fast = fast_mode(s, torch, lws_torch, sweeps_mod)
+    vocoder = vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas)
+    resumable = resumable_path(s, torch, lws_torch, sweeps_mod)
+    gradient = gradient_path(s, torch, lws_torch, sweeps_mod)
+    # K1: the longform path's run at the top; the batch path's run, the
+    # music path's batch stage, the vocoder and resumable runs nested, each
+    # from its own run; beside them the plain paths that launch no kernel
+    # (fast mode's Jacobi orders, the gradients)
     entry = dict(name="lws_sweeps", route="cuda", source="lws_torch/csrc/lws_sweeps.cu",
                  replaces="lws_tpu/ops/pallas_packed.py:1411", library_ms=None,
-                 **longform, batch=batch_sweeps, music=music_sweeps)
+                 **longform, batch=batch_sweeps, music=music_sweeps, vocoder=vocoder,
+                 resumable=resumable, fast_mode=fast, gradient=gradient)
     entry["max_abs_err"] = worst
     online_entry["max_abs_err"] = max(worst_online, worst_new[False])
     chunk_entry["max_abs_err"] = max(worst_chunk, worst_new[True])

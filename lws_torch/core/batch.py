@@ -1,16 +1,20 @@
 """Batch-mode LWS sweeps (batch and no-future schedules), plain PyTorch.
 
-Counterpart of lws_tpu/core/batch.py, order "gs" only: iterate thresholded
-phase-update sweeps over the whole spectrogram, frame after frame in the
-reference's order (frame m reads frames m-Q+1..m-1 from this sweep and
-m+1..m+Q-1 from the previous one). The no-future schedule is the same
-sweep with a v = -1 stencil built from the asymmetric-init weights.
+Counterpart of lws_tpu/core/batch.py: iterate thresholded phase-update
+sweeps over the whole spectrogram. order "gs" updates frame after frame in
+the reference's order (frame m reads frames m-Q+1..m-1 from this sweep and
+m+1..m+Q-1 from the previous one); "jacobi" and "jacobi_mxu" update the
+whole grid from the previous sweep at once, the latter with the tap sums
+as banded matrix products. The no-future schedule is the same sweep with a
+v = -1 stencil built from the asymmetric-init weights.
 
-`lws_sweeps` is the plain version of the CUDA sweep kernel
+`lws_sweeps` at order "gs" is the plain version of the CUDA sweep kernel
 (lws_torch/ops/lws_sweeps.py, lws_torch/csrc/lws_sweeps.cu) and
 `packed_sweeps` that of the grouped sweep kernel (lws_torch/ops/packed.py,
 the same source); each wrapper takes its plain version for CPU tensors or
-backend="torch".
+backend="torch". The Jacobi orders have no kernel: lws_tpu runs them in
+XLA, and the processor runs them here on every device. Autograd
+differentiates every order (amp through `safe_sqrt`).
 """
 from __future__ import annotations
 
@@ -19,12 +23,26 @@ import torch
 from .stencil import (
     Stencil,
     _taps,
+    apply_stencil,
+    apply_stencil_mxu,
     freq_extend,
     make_time_halos,
     phase_update,
+    safe_sqrt,
     time_extend,
     update_frame,
 )
+
+ORDERS = ("gs", "jacobi", "jacobi_mxu")
+
+
+def _live(amp, thresholds, mean_amp):
+    """Per sweep, whether any bin of any item exceeds its threshold
+    thresholds[it] * mean_amp; a sweep no bin passes changes nothing. One
+    host read for all sweeps."""
+    amax = amp.amax(dim=(-2, -1), keepdim=True)
+    thr = thresholds.reshape((-1,) + (1,) * amax.ndim) * mean_amp
+    return (amax > thr).flatten(1).any(dim=1).tolist()
 
 
 def lws_sweeps(
@@ -37,12 +55,18 @@ def lws_sweeps(
     inner_scheme: str = "jacobi",
     halo: tuple | None = None,
     mean_amp: torch.Tensor | None = None,
+    precision=None,
 ):
     """Run len(thresholds) LWS sweeps over (sr, si) of shape (..., T, F).
 
     Target magnitudes are fixed to |S| at entry (lwslib.cpp:59-65);
     thresholds are scaled by the per-item mean input magnitude
-    (python/lws.pyx:240-245).
+    (python/lws.pyx:240-245). `order` is "gs" (frame-sequential
+    Gauss-Seidel, the reference's order), "jacobi" (whole-grid sweeps) or
+    "jacobi_mxu" (the same Jacobi sweeps with the tap sums as banded matrix
+    products; `precision` sets their float32 precision on CUDA, see
+    core.stencil.matmul_precision). The Jacobi orders ignore the in-frame
+    `inner_passes` / `inner_scheme`, as lws_tpu's do.
 
     `halo` is (top_r, top_i, bot_r, bot_i) of shape (..., Q-1, F): explicit
     frozen time-halo frames used instead of the default edge replicas, and
@@ -50,23 +74,23 @@ def lws_sweeps(
     same contract as lws_tpu's lws_sweeps and its kernels.
 
     A sweep in which no bin of any item exceeds its threshold leaves every
-    value as it was, so it is skipped; the skip is exact.
+    value as it was, so it is skipped; the skip is exact in every order.
     """
-    if order != "gs":
-        raise NotImplementedError(
-            f"lws_torch: order={order!r} is not ported yet; only 'gs' is "
-            "(the Jacobi orders are ROADMAP A12)")
+    if order not in ORDERS:
+        raise ValueError(f"unknown sweep order: {order!r}")
     thresholds = torch.as_tensor(thresholds, dtype=sr.dtype, device=sr.device)
     if thresholds.shape[0] == 0:
         return sr, si
     Q, L = st.Q, st.L
     T, F = sr.shape[-2:]
-    amp = torch.sqrt(sr * sr + si * si)
+    # safe_sqrt: zero bins (silence, padding) would put d(sqrt)/dx = inf on
+    # the backward path; the forward is torch.sqrt
+    amp = safe_sqrt(sr * sr + si * si)
     if mean_amp is None:
         mean_amp = amp.mean(dim=(-2, -1), keepdim=True)
     else:
         mean_amp = torch.as_tensor(mean_amp, device=sr.device)[..., None, None].to(amp.dtype)
-    amax = amp.amax(dim=(-2, -1), keepdim=True)
+    live = _live(amp, thresholds, mean_amp)
 
     xr0, xi0 = freq_extend(sr, si, L)
     if halo is None:
@@ -75,6 +99,22 @@ def lws_sweeps(
     else:
         top_r, top_i = freq_extend(halo[0], halo[1], L)
         bot_r, bot_i = freq_extend(halo[2], halo[3], L)
+
+    if order != "gs":
+        cr, ci = sr, si
+        for it in range(thresholds.shape[0]):
+            if not live[it]:
+                continue
+            er, ei = freq_extend(cr, ci, L)
+            xr = time_extend(er, top_r, bot_r)
+            xi = time_extend(ei, top_i, bot_i)
+            if order == "jacobi_mxu":
+                tr, ti = apply_stencil_mxu(xr, xi, st, precision=precision)
+            else:
+                tr, ti = apply_stencil(xr, xi, st)
+            cr, ci = phase_update(tr, ti, amp, cr, ci, thresholds[it] * mean_amp)
+        return cr, ci
+
     # the extended state is evolved in place: each frame update re-extends
     # its row, so at the end of a sweep the margins equal freq_extend of the
     # interior, as if re-extended at the start of the next sweep
@@ -83,7 +123,7 @@ def lws_sweeps(
 
     for it in range(thresholds.shape[0]):
         thr = thresholds[it] * mean_amp  # (..., 1, 1)
-        if not bool((amax > thr).any()):
+        if not live[it]:
             continue
         thr_m = thr[..., 0, :]  # (..., 1), broadcasts against (..., F)
         for m in range(T):
@@ -132,12 +172,12 @@ def packed_sweeps(
     Q, L = st.Q, st.L
     Q1 = Q - 1
     T, F = sr.shape[-2:]
-    amp = torch.sqrt(sr * sr + si * si)
+    amp = safe_sqrt(sr * sr + si * si)
     if mean_amp is None:
         mean_amp = amp.mean(dim=(-2, -1), keepdim=True)
     else:
         mean_amp = torch.as_tensor(mean_amp, device=sr.device)[..., None, None].to(amp.dtype)
-    amax = amp.amax(dim=(-2, -1), keepdim=True)
+    live = _live(amp, thresholds, mean_amp)
     xr0, xi0 = freq_extend(sr, si, L)
     if halo is None:
         top_r, bot_r = make_time_halos(xr0, Q)
@@ -153,7 +193,7 @@ def packed_sweeps(
     has_centre = st.has_centre
     for it in range(thresholds.shape[0]):
         thr = thresholds[it] * mean_amp  # (..., 1, 1)
-        if not bool((amax > thr).any()):
+        if not live[it]:
             continue
         for start in range(0, T, micro):
             g = min(micro, T - start)

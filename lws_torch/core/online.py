@@ -26,7 +26,8 @@ the threshold scale mean |S| per item.
 
 This is the plain version of the online kernels (lws_torch/csrc/lws_online.cu,
 wrapped by lws_torch/ops/online.py); the wrappers take it for CPU tensors
-or backend="torch".
+or backend="torch". Autograd differentiates it: the magnitudes go through
+`safe_sqrt`, and nothing that autograd saved is written in place.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from .stencil import Stencil, freq_extend, update_frame
+from .stencil import Stencil, freq_extend, safe_sqrt, update_frame
 
 
 class ChunkState(NamedTuple):
@@ -110,8 +111,9 @@ def online_chunk(
     xr, xi = freq_extend(torch.cat([state.ring_r.index_select(1, hist), sr], dim=1),
                          torch.cat([state.ring_i.index_select(1, hist), si], dim=1), L)
     xr, xi = xr.contiguous(), xi.contiguous()
-    amp = torch.sqrt(sr * sr + si * si)
-    amp[:, n_live:] = 0
+    amp = safe_sqrt(sr * sr + si * si)
+    if n_live < N:  # drain steps update nothing: their target magnitude is 0
+        amp = torch.cat([amp[:, :n_live], torch.zeros_like(amp[:, n_live:])], dim=1)
     ahist = _slots(seen - LA, LA, WA, dev)
     amps = torch.cat([state.amp.index_select(1, ahist), amp], dim=1)  # row LA+m: frame m
 
@@ -168,7 +170,7 @@ def rtisi_la(
     T, F = shape[-2:]
     LA = len(st_la)
     sr3, si3 = sr.reshape(-1, T, F), si.reshape(-1, T, F)
-    means = torch.sqrt(sr3 * sr3 + si3 * si3).mean(dim=(-2, -1))[:, None].expand(-1, T)
+    means = safe_sqrt(sr3 * sr3 + si3 * si3).mean(dim=(-2, -1))[:, None].expand(-1, T)
     args = (st_la, st_ai, st_af, thresholds)
     kw = dict(inner_passes=inner_passes, inner_scheme=inner_scheme)
     state = online_chunk_init(st_la, st_af, sr3[:, 0], si3[:, 0])

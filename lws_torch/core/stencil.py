@@ -18,12 +18,16 @@ float64, and is what the kernel is held against on the card. Each frame's
 tap sum is one vectorised product over the (2Q-1, 2L+1, F) unfolded patch,
 not a Python loop over the taps.
 
-Not ported in this slice: `apply_stencil` / `band_mats` /
-`apply_stencil_mxu` (the Jacobi orders, ROADMAP A12) and the `safe_sqrt`
-gradient contract (A11).
+The Jacobi orders update the whole grid at once: `apply_stencil` sums the
+live taps over the extended grid, `apply_stencil_mxu` does the same sum as
+banded matrix products (`Stencil.band_mats`), which lws_tpu computes outside
+any Pallas kernel and which here go to `torch.matmul` under a local
+`matmul_precision`. `safe_sqrt` is `torch.sqrt` with a finite derivative at
+0, so autograd differentiates the plain sweeps through silent bins.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from functools import cached_property
 
@@ -33,6 +37,61 @@ import torch
 from .._device import resolve_device
 
 RI = tuple  # (sr, si)
+
+
+class _SafeSqrt(torch.autograd.Function):
+    """torch.sqrt whose derivative is 0, not inf, where x == 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        pos = x > 0
+        return torch.where(pos, g / (2 * torch.where(pos, y, torch.ones_like(y))),
+                           torch.zeros_like(y))
+
+
+def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """`torch.sqrt(x)`, bit for bit, with a zero gradient where x == 0
+    (lws_tpu's safe_sqrt): d(sqrt)/dx at 0 is inf, which the phase update's
+    masked branches would turn into NaN; a bin of zero magnitude holds its
+    value, so 0 is the right subgradient there."""
+    return _SafeSqrt.apply(x)
+
+
+# precision= of the banded matmuls -> torch.set_float32_matmul_precision on
+# CUDA: None and "highest" are full float32 (TF32 off, PyTorch's default),
+# "high" lets float32 products run in TF32 on the tensor cores.
+MATMUL_PRECISIONS = {None: "highest", "highest": "highest", "high": "high"}
+
+
+def check_precision(precision) -> None:
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError("lws_torch: precision must be None, 'highest' or 'high', "
+                         f"got {precision!r}")
+
+
+@contextlib.contextmanager
+def matmul_precision(device: torch.device, precision):
+    """Set the float32 matmul precision for `precision` while the block runs
+    on a CUDA `device`, and restore the caller's setting after it. The CPU
+    runs every product in full precision; float64 products are exact anyway.
+    The setting is process-wide while the block runs."""
+    check_precision(precision)
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(MATMUL_PRECISIONS[precision])
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 @dataclass(frozen=True)
@@ -76,6 +135,30 @@ class Stencil:
                 if dr != c and self.nz[dr].any()]
         idx = torch.tensor(rows, dtype=torch.long, device=self.Wr.device)
         return idx, self.Wr[idx], self.Wi[idx]
+
+    def band_mats(self):
+        """The banded (2Q-1, F+2L, F) matmul form of each row's frequency
+        taps, M[dr, n+dk, n] = W[dr, dk, n], so one row's tap sum over the
+        extended bins is one (..., T, F+2L) @ (F+2L, F) product (lws_tpu's
+        Stencil.band_mats). Built on the host in float64 from the stencil's
+        own values, per bin (fractional Q has per-bin weights), stored in the
+        stencil's dtype and device, and cached with the stencil."""
+        hit = self.__dict__.get("_band")
+        if hit is None:
+            F, Q, L = self.n_bins, self.Q, self.L
+            Wr = self.Wr.detach().cpu().double().numpy()
+            Wi = self.Wi.detach().cpu().double().numpy()
+            Mr = np.zeros((2 * Q - 1, F + 2 * L, F))
+            Mi = np.zeros_like(Mr)
+            cols = np.arange(F)
+            for dr in range(2 * Q - 1):
+                for dk in range(2 * L + 1):
+                    if self.nz[dr, dk]:
+                        Mr[dr, cols + dk, cols] = Wr[dr, dk]
+                        Mi[dr, cols + dk, cols] = Wi[dr, dk]
+            hit = self.__dict__["_band"] = tuple(
+                torch.as_tensor(m).to(self.Wr.device, self.Wr.dtype) for m in (Mr, Mi))
+        return hit
 
 
 def make_stencil(Wst_np: np.ndarray, Q: int, L: int, v: int, *, device=None,
@@ -144,11 +227,58 @@ def phase_update(tr, ti, amp, old_r, old_i, thr) -> RI:
     stays finite); the update is kept only where amp > thr (strict, as
     lwslib.cpp:84-85) and a2 > 0 (lwslib.cpp:133-137), else the old value.
     The same formula as lws_tpu's phase_update and its kernel epilogues.
+    The guard inside the rsqrt keeps the branch `where` does not take finite,
+    so its gradient is 0, not NaN, at a zero sum.
     """
     a2 = tr * tr + ti * ti
     scale = amp * torch.rsqrt(torch.where(a2 > 0, a2, torch.ones_like(a2)))
     cond = (amp > thr) & (a2 > 0)
     return torch.where(cond, tr * scale, old_r), torch.where(cond, ti * scale, old_i)
+
+
+def apply_stencil(xr: torch.Tensor, xi: torch.Tensor, st: Stencil) -> RI:
+    """Jacobi tap sum over the whole extended grid: (..., T+2(Q-1), F+2L)
+    -> (..., T, F), the live taps summed one by one in (dr, dk) order, as
+    lws_tpu's apply_stencil."""
+    Q, L = st.Q, st.L
+    T = xr.shape[-2] - 2 * (Q - 1)
+    F = st.n_bins
+    tr = xr.new_zeros(xr.shape[:-2] + (T, F))
+    ti = torch.zeros_like(tr)
+    for dr in range(2 * Q - 1):
+        for dk in range(2 * L + 1):
+            if not st.nz[dr, dk]:
+                continue
+            wr, wi = st.Wr[dr, dk], st.Wi[dr, dk]
+            br = xr[..., dr:dr + T, dk:dk + F]
+            bi = xi[..., dr:dr + T, dk:dk + F]
+            tr = tr + (wr * br - wi * bi)
+            ti = ti + (wr * bi + wi * br)
+    return tr, ti
+
+
+def apply_stencil_mxu(xr: torch.Tensor, xi: torch.Tensor, st: Stencil,
+                      precision=None) -> RI:
+    """`apply_stencil` as banded matrix products: for each row dr with a
+    live tap, the (2L+1)-tap sum over the extended bins is one
+    (..., T, F+2L) @ (F+2L, F) product with `Stencil.band_mats`, four real
+    products per complex one (lws_tpu's apply_stencil_mxu). The same sum in
+    another order: within 1e-9 of `apply_stencil` in float64. `precision`
+    (None, "highest", "high") sets the float32 matmul precision on CUDA
+    (`matmul_precision`)."""
+    Q = st.Q
+    T = xr.shape[-2] - 2 * (Q - 1)
+    Mr, Mi = st.band_mats()
+    tr = ti = 0.0
+    with matmul_precision(xr.device, precision):
+        for dr in range(2 * Q - 1):
+            if not st.nz[dr].any():
+                continue
+            br = xr[..., dr:dr + T, :]
+            bi = xi[..., dr:dr + T, :]
+            tr = tr + (torch.matmul(br, Mr[dr]) - torch.matmul(bi, Mi[dr]))
+            ti = ti + (torch.matmul(br, Mi[dr]) + torch.matmul(bi, Mr[dr]))
+    return tr, ti
 
 
 def _parse_colors(scheme: str) -> tuple[int, int]:

@@ -1105,6 +1105,24 @@ int lws_sweeps_plan(int F, int Q, int L, long long* out) {
                                                      : (int)cudaErrorInvalidValue;
 }
 
+// Blocks of the kernel lws_sweeps_launch runs for (F, Q, L) that one SM of
+// the current device holds at once, as the CUDA runtime counts them (its
+// registers, its dynamic shared memory, its threads) into *blocks. Returns
+// the cudaError_t of the query; a plan that does not fit one block is
+// cudaErrorInvalidValue.
+int lws_sweeps_occupancy(int F, int Q, int L, int* blocks) {
+  *blocks = 0;
+  if (F < 1 || Q < 1 || L < 0) return (int)cudaErrorInvalidValue;
+  const SweepPlan p = sweep_plan(F, Q, L);
+  if (p.bytes > kSmemLimit || p.bins > kMaxBins) return (int)cudaErrorInvalidValue;
+  const SweepKernel kernel = pick_kernel(p, Q);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, p.threads,
+                                                            (size_t)p.bytes);
+}
+
 // K5's launch plan for (F, Q, L, micro) and a table of G live taps by P
 // columns into out[0..12]: elements per thread, threads, element stride,
 // row width, ring slots, ring, table, centre buffers and sums in shared

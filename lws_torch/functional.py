@@ -17,7 +17,10 @@ complex64, as lws_tpu does on its chip, where JAX without x64 computes
 complex128 input in float32.
 
 The sweeps run one jacobi in-frame pass, as lws_tpu's free functions do
-(the processor's per-Q in-frame defaults are not applied here).
+(the processor's per-Q in-frame defaults are not applied here). `order`
+("gs", "jacobi", "jacobi_mxu") is lws_tpu's: "gs" goes to the sweep kernel
+(or its plain version), the Jacobi orders to their plain whole-grid sweeps
+on every device, their banded matmuls in full float32.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .core.batch import ORDERS, lws_sweeps
 from .core.stencil import freq_extend, make_stencil, make_time_halos, merge, split, time_extend
 from .ops.lws_sweeps import tiled_lws_sweeps
 from .ops.online import packed_rtisi_la
@@ -77,9 +81,8 @@ def extspec(S, L, Q, device=None):
 
 def _sweeps(S, W, thresholds, order, device, backend, v):
     """Sweeps of the stencil of W at visibility v (None: the batch one)."""
-    if order != "gs":
-        raise NotImplementedError(
-            f"lws_torch: order={order!r} is not ported yet (ROADMAP A12)")
+    if order not in ORDERS:
+        raise ValueError(f"lws_torch: order must be one of {ORDERS}, got {order!r}")
     _check_backend(backend)
     dev = resolve_device(device)
     pair, rdtype = _split_in(S, dev, backend)
@@ -88,6 +91,8 @@ def _sweeps(S, W, thresholds, order, device, backend, v):
         return merge(*pair)
     Q = np.asarray(W).shape[1]
     st = _stencil_from_W(W, pair[0].shape[-1], Q - 1 if v is None else v, rdtype, dev)
+    if order != "gs":
+        return merge(*lws_sweeps(*pair, st=st, thresholds=thr, order=order))
     return merge(*tiled_lws_sweeps(*pair, st=st, thresholds=thr, backend=backend))
 
 

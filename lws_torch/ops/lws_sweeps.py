@@ -25,6 +25,9 @@ bytes; csrc/lws_sweeps.cu::sweep_plan): any Q and L whose plan fits one
 block run. CPU tensors, and backend="torch", take the plain version
 (lws_torch.core.batch.lws_sweeps). A CUDA tensor the kernel does not take
 (float64, a plan past 227 KB of shared memory) raises; nothing falls back.
+The kernels have no backward (lws_tpu's Pallas kernels have no custom_vjp
+either), so a CUDA tensor that requires grad raises too (`refuse_grad`):
+autograd differentiates the plain version, backend="torch".
 """
 from __future__ import annotations
 
@@ -110,6 +113,8 @@ def _library():
         lib.lws_sweeps_launch.restype = ctypes.c_int
         lib.lws_sweeps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.lws_sweeps_plan.restype = ctypes.c_int
+        lib.lws_sweeps_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lws_sweeps_occupancy.restype = ctypes.c_int
         lib.lws_packed_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
         lib.lws_packed_launch.restype = ctypes.c_int
@@ -132,6 +137,21 @@ def sweep_schedule(sr, si, thresholds, mean_amp=None):
     thr = thresholds.to(amp.dtype)[None, :] * mean[:, None]
     live = (amp.amax(dim=(-2, -1))[:, None] > thr).to(torch.int32)
     return amp, thr, live
+
+
+def refuse_grad(entry: str, *tensors) -> None:
+    """Raise a ValueError naming backend='torch' when grad mode is on and any
+    of `tensors` (tensors, or tuples of them, or None) requires grad: a CUDA
+    kernel's output has no grad_fn, so the gradient would be lost without a
+    word."""
+    if not torch.is_grad_enabled():
+        return
+    flat = [t for x in tensors for t in (x if isinstance(x, (tuple, list)) else (x,))]
+    if any(torch.is_tensor(t) and t.requires_grad for t in flat):
+        raise ValueError(
+            f"lws_torch: {entry} launches a CUDA kernel, which has no backward, on a "
+            "tensor that requires grad; use backend='torch' for the plain PyTorch "
+            "version, which autograd differentiates")
 
 
 def _schedule_args(st: Stencil, inner_passes: int, inner_scheme: str):
@@ -230,6 +250,20 @@ def kernel_plan(F: int, Q: int, L: int) -> SweepPlan:
     return SweepPlan(v[0], v[1], v[2], bool(v[3]), v[4], v[5], bool(v[6]), v[7])
 
 
+def kernel_occupancy(F: int, Q: int, L: int) -> int:
+    """Blocks of the kernel K1 launches for (F, Q, L) that one SM of the
+    current CUDA device holds at once, as the CUDA runtime's occupancy
+    query counts them (lws_sweeps_occupancy); builds csrc/lws_sweeps.cu on
+    first use."""
+    lib = _library()
+    blocks = ctypes.c_int(0)
+    err = lib.lws_sweeps_occupancy(int(F), int(Q), int(L), ctypes.byref(blocks))
+    if err != 0:
+        msg = lib.lws_sweeps_error_string(err).decode()
+        raise RuntimeError(f"lws_torch: lws_sweeps_occupancy failed: {msg} ({err})")
+    return blocks.value
+
+
 def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, weights, schedule,
                   scratch=None):
     """Check the inputs, build the padded state and the schedule, and run
@@ -240,7 +274,9 @@ def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, weights, schedu
     (its plan's), allocated here and passed after the thresholds' live
     flags (null when 0). Returns the output pair and whether a kernel was
     launched (not for zero sweeps). The callers check the geometry each
-    kernel takes (K1: sweep_plan; K5: packed_plan)."""
+    kernel takes (K1: sweep_plan; K5: packed_plan). Refuses tensors that
+    require grad (`refuse_grad`)."""
+    refuse_grad(entry, sr, si, st.Wr, st.Wi, thresholds, halo, mean_amp)
     dev = sr.device
     for name, t in (("sr", sr), ("si", si), ("st.Wr", st.Wr), ("st.Wi", st.Wi)):
         if t.dtype != torch.float32:

@@ -23,8 +23,9 @@ whether the ring, the table and K4's amp rows sit in shared memory, bytes;
 csrc/lws_online.cu::online_plan). Any Q, L and look-ahead run, F up to
 16384. CPU tensors, and backend="torch", take the plain versions
 (lws_torch.core.online.rtisi_la / online_chunk). A CUDA tensor the kernels
-do not take (float64) raises a ValueError that names backend="torch";
-nothing falls back.
+do not take (float64), or one that requires grad (the kernels have no
+backward), raises a ValueError that names backend="torch"; nothing falls
+back.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from ..core.online import online_chunk as plain_online_chunk
 from ..core.online import rtisi_la as plain_rtisi_la
 from ..core.stencil import Stencil, _parse_colors
 from . import _build
-from .lws_sweeps import SMEM_LIMIT
+from .lws_sweeps import SMEM_LIMIT, refuse_grad
 
 __all__ = ["packed_rtisi_la", "online_chunk", "online_chunk_init", "ChunkState",
            "online_supported", "online_weight_sets", "online_weights", "weight_table",
@@ -262,11 +263,14 @@ def packed_rtisi_la(
 
 def _check(sr, si, st_la, st_ai, st_af, tensors, chunk):
     """Device, dtype and shape checks shared by the two kernels' wrappers
-    (`tensors`: more (name, tensor) pairs to hold to sr's dtype and device)."""
+    (`tensors`: more (name, tensor) pairs to hold to sr's dtype and device).
+    Refuses tensors that require grad: the kernels have no backward."""
     dev = sr.device
     sets = [st_ai, st_af, *st_la]
     tensors = [("sr", sr), ("si", si)] + tensors + [
         (f"weight set {k}", t) for k, st in enumerate(sets) for t in (st.Wr, st.Wi)]
+    refuse_grad("lws_online_chunk_launch" if chunk else "lws_online_launch",
+                *(t for _, t in tensors))
     for name, t in tensors:
         if t.dtype != torch.float32:
             raise ValueError(

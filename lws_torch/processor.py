@@ -24,12 +24,22 @@ the sweeps run in macro chunks of about _MACRO_CHUNK frames with their
 real neighbours as frozen halos and the whole signal's mean. The plan
 depends on the device alone, not on the backend; on the CPU S = 1.
 
-The processor runs on CUDA unless `device` names another device; without
-CUDA and without `device`, construction raises.
+The Jacobi orders (order="jacobi", "jacobi_mxu"; precision= for the
+latter's banded matmuls) run the plain whole-grid sweeps on every device,
+as lws_tpu runs them in XLA only: no time segments (S = 1), macro chunks
+past _MACRO_T as for "gs". The online stage ignores `order`, as lws_tpu's.
+lws_tpu's TPU-only fallback to the Jacobi orders where its Pallas kernels
+do not fit (`_xla_fallback`) has no counterpart: the sweep kernel takes
+every Q its shared-memory plan fits, and a geometry it does not take
+raises.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-order != "gs" (A12) and batch_lws(mesh=...) (A14). The TPU launch knobs
-(pallas_*) are not carried over.
+The processor runs on CUDA unless `device` names another device; without
+CUDA and without `device`, construction raises. The kernels have no
+backward: autograd through the stages needs backend="torch" (a CUDA tensor
+that requires grad raises in the kernels' wrappers).
+
+Not ported yet: batch_lws(mesh=...) raises NotImplementedError naming
+ROADMAP A14. The TPU launch knobs (pallas_*) are not carried over.
 """
 from __future__ import annotations
 
@@ -40,7 +50,8 @@ import torch
 
 from . import stft as _stft
 from ._device import real_dtype, resolve_device
-from .core.stencil import make_stencil, merge, split
+from .core.batch import ORDERS, lws_sweeps
+from .core.stencil import check_precision, make_stencil, merge, split
 from .ops.lws_sweeps import tiled_lws_sweeps
 from .ops.online import packed_rtisi_la
 from .ops.segmented import segmented_lws_sweeps
@@ -65,8 +76,12 @@ class LWS:
     CUDA) and `dtype` (float32 default, float64 supported on the plain
     path) place the processor; `backend` is "auto" (kernels on CUDA
     float32, plain PyTorch on the CPU) or "torch" (plain PyTorch anywhere).
-    `auto_segment` enables time segmentation and macro chunking of long
-    inputs (lws_tpu's default, True).
+    `order` is the batch and no-future stages' sweep order: "gs" (the
+    reference's frame order, on the sweep kernel), "jacobi" or "jacobi_mxu"
+    (whole-grid sweeps in plain PyTorch, the latter as banded matmuls whose
+    float32 precision on CUDA `precision` sets: None or "highest" full
+    float32, "high" TF32). `auto_segment` enables time segmentation and
+    macro chunking of long inputs (lws_tpu's default, True).
     """
 
     # Macro time chunking past _MACRO_T frames, in chunks of about
@@ -111,6 +126,7 @@ class LWS:
         use_simplifications=True,
         dtype=None,
         order="gs",
+        precision=None,
         inner_passes=None,
         inner_scheme=None,
         backend="auto",
@@ -121,9 +137,20 @@ class LWS:
         self.auto_segment = bool(auto_segment)
         self._n_sm = (torch.cuda.get_device_properties(self.device).multi_processor_count
                       if self.device.type == "cuda" else 0)
-        if order != "gs":
-            raise NotImplementedError(
-                f"lws_torch: order={order!r} is not ported yet (ROADMAP A12)")
+        if order not in ORDERS:
+            raise ValueError(f"lws_torch: order must be one of {ORDERS}, got {order!r}")
+        check_precision(precision)
+        if order == "jacobi_mxu" and precision == "high":
+            # lws_tpu warns at its reduced-precision default (bf16 passes),
+            # which floored a pure tone at 19.74 dB against the elementwise
+            # order's 23.67 (its PERF.md round-4); on CUDA None is full
+            # float32, so only an explicit "high" reduces it
+            warnings.warn(
+                "lws_torch: order='jacobi_mxu' with precision='high' runs the banded "
+                "matmuls in TF32 (10-bit mantissa), which can floor the consistency "
+                "reachable on high-consistency material (lws_tpu's reduced-precision "
+                "passes floored a pure tone near ~19 dB); pass precision='highest' or "
+                "None for float32 results equal to order='jacobi'")
         if backend not in ("auto", "torch"):
             raise ValueError(f"backend must be 'auto' or 'torch', got {backend!r}")
         if isinstance(awin_or_fsize, (int, np.integer)):
@@ -168,6 +195,7 @@ class LWS:
         self.look_ahead = int(look_ahead)
         self.use_simplifications = use_simplifications
         self.order = order
+        self.precision = precision
         self.backend = backend
         self.rdtype = real_dtype(dtype)
 
@@ -323,12 +351,16 @@ class LWS:
     def _sweep_fn(self, pair, thr, st, inner_passes, inner_scheme, halo=None,
                   mean_amp=None):
         """The batch / no-future dispatch: macro chunks past _MACRO_T frames
-        (not inside a chunk), then segmented sweeps when the plan gives S > 1,
+        (not inside a chunk); then the Jacobi orders' plain sweeps on the
+        whole input; for "gs", segmented sweeps when the plan gives S > 1,
         else the sweep kernel (or its plain version) on the whole input."""
         sr, si = pair
         T = sr.shape[-2]
         if halo is None and self.auto_segment and T > self._MACRO_T:
             return self._macro_sweeps(pair, thr, st, inner_passes, inner_scheme)
+        if self.order != "gs":
+            return lws_sweeps(sr, si, st, thr, order=self.order, halo=halo,
+                              mean_amp=mean_amp, precision=self.precision)
         S = self._auto_segments(sr.numel() // (T * sr.shape[-1]), T)
         kw = dict(inner_passes=inner_passes, inner_scheme=inner_scheme, halo=halo,
                   mean_amp=mean_amp, backend=self.backend)
@@ -351,7 +383,8 @@ class LWS:
 
     def online_lws(self, S, iterations=None, thresholds=None):
         """Online (TF-RTISI-LA) sliding-commit pass, look-ahead
-        `look_ahead`, with the processor's inner_passes / inner_scheme."""
+        `look_ahead`, with the processor's inner_passes / inner_scheme
+        (whatever `order` says)."""
         if iterations is None:
             iterations = self.online_iterations
         thr = self._thr(iterations, self.online_alpha, self.online_beta,

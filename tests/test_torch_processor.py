@@ -109,8 +109,10 @@ def test_unported_paths_raise_with_roadmap_item(golden_q4):
         j = lws_tpu.LWS(512, 128, **kw)
         assert (t.nofuture_iterations, t.online_iterations) == \
             (j.nofuture_iterations, j.online_iterations)
-    with pytest.raises(NotImplementedError, match="A12"):
-        lws_torch.LWS(512, 128, order="jacobi", device="cpu")
+    # the Jacobi orders (A12) are ported: they construct; an unknown order raises
+    assert lws_torch.LWS(512, 128, order="jacobi", device="cpu").order == "jacobi"
+    with pytest.raises(ValueError, match="order"):
+        lws_torch.LWS(512, 128, order="bogus", device="cpu")
     p = _proc(golden_q4)
     A = np.abs(golden_q4.S)
     with pytest.raises(NotImplementedError, match="A14"):
