@@ -84,7 +84,22 @@ Phases, in order:
      waveform L2 loss back to the magnitudes (finite, nonzero), float32
      held to float64 on the same input per well-conditioned utterance, and
      the backend="auto" call that must refuse (K1 has no backward);
- 12. the kernels line (JSON), then the result line (JSON) last.
+ 12. the sharded sweeps (lws_torch.parallel), each case's ranks spawned
+     from this script, any rank's failure failing the run: (a) one NCCL
+     rank, mesh (1, 1), batch_lws(mesh=) on the batch path's input (one
+     time shard, nothing to exchange: one K1 launch for the 100 sweeps)
+     against batch_lws() (from random phases bit for bit; from |X| by
+     consistency); (b) four gloo ranks sharing the card, mesh (1, 4),
+     kernel="tiled", longform's geometry on the 120 s prefix, an exchange
+     every 3 sweeps (34 K1 launches per rank), against
+     segmented_lws_sweeps given the same mean (from random phases, bit for
+     bit) and the unsharded batch_lws (from |X|); (c) meshes (4, 1) (one
+     launch a rank) and (2, 2) on the batch path's input; (d)
+     order="jacobi_mxu" over (1, 4) at F = 2049; (e) scaling_report over
+     the four ranks (estimate_only). Per rank: the wall, K1's launches and
+     K1's time (CUDA events); the ranks share one card, so no figure is a
+     scaling figure;
+ 13. the kernels line (JSON), then the result line (JSON) last.
 
 Every timed sweep-kernel (K1) run (the batch path, the music path's batch
 stage, the longform path and its case (a)) prints its microseconds per
@@ -2090,6 +2105,382 @@ def gradient_path(s, torch, lws_torch, sweeps_mod):
     return res
 
 
+# Phase 12, the sharded sweeps (lws_torch.parallel): the ranks are spawned
+# from this script (torch.multiprocessing, spawn) and join through a file
+# store under build/. Case (a) is one NCCL rank, mesh (1, 1); cases (b)-(e)
+# are PAR_RANKS gloo ranks that share the one card (NCCL refuses two ranks
+# on one GPU), so their times are no measure of scaling. Case (b) runs
+# longform's geometry on the first PAR_LONG_SECONDS of the 630 s stream (its
+# depth cut to keep the run inside its time), T trimmed to a multiple of
+# the ranks, an exchange every PAR_EXCHANGE sweeps; its random-phase check
+# runs PAR_CASE_SWEEPS sweeps at alpha=1. Case (d): jacobi_mxu over (1, 4) at
+# F = 2049 on PAR_MXU_FRAMES frames, 2 sweeps, held to the unsharded order
+# to TOL_MXU_SHARD x max amp (lws_tpu's dryrun phase 3). The batch-mean
+# consistency of a sharded run from |X| stays within TOL_SHARD_DB of the
+# unsharded one at mesh (1, 1) and within TOL_SHARD_MEAN_DB over 2 or 4
+# time shards (lws_tpu's bound, tests/test_sharding.py:203-251).
+PAR_RANKS, PAR_TIMEOUT_S, PAR_JOIN_S = 4, 300, 600
+PAR_LONG_SECONDS, PAR_EXCHANGE, PAR_CASE_SWEEPS = 120.0, 3, 12
+PAR_MXU_FRAMES = 128
+PAR_REPORT_FRAMES, PAR_REPORT_SWEEPS = 2048, 20  # case (e), scaling_report's defaults
+TOL_SHARD_DB, TOL_SHARD_MEAN_DB, TOL_MXU_SHARD = 0.05, 0.25, 2e-4
+
+
+class RankChecks(Smoke):
+    """A rank's checks, kept for the parent to report."""
+
+    def __init__(self, torch):
+        super().__init__(torch)
+        self.checks = []
+
+    def check(self, ok, what):
+        self.checks.append((bool(ok), what))
+
+
+def _rel(torch, a, b, amp):
+    """max |a - b| over both planes, and that over max amp."""
+    d = float(torch.maximum((a[0] - b[0]).abs(), (a[1] - b[1]).abs()).max())
+    return d, d / float(amp.max())
+
+
+def _timed_run(s, torch, sweeps_mod, fn, warm=False):
+    """fn() once, counted and timed: (output, K1 launches, K1 ms (CUDA
+    events around its wrapper, summed), wall ms). With `warm`, an uncounted
+    fn() first takes the process's first-launch costs off the timed run."""
+    if warm:
+        fn()
+    sweeps_mod.LAUNCHES = 0
+    with KernelTimer(torch, sweeps_mod, "tiled_lws_sweeps") as kt:
+        s.sync()
+        t0 = time.perf_counter()
+        out = fn()
+        s.sync()
+        wall = time.perf_counter() - t0
+    return out, sweeps_mod.LAUNCHES, kt.ms(), 1e3 * wall
+
+
+def _shard_bound(torch, lws_torch, sweeps_mod, proc, pair, mesh):
+    """(bound_ms, bound_by) of this rank's share of MAIN_SWEEPS batch sweeps
+    of the global `pair` time-sharded over `mesh`: the live sweeps of its
+    shard against the whole time axis's mean (sweep_bound). Collective: an
+    all-reduce over 'time'."""
+    from lws_torch.parallel import sharding
+    local = sharding.shard_pair(pair, mesh, time_sharded=True)
+    thr = torch.as_tensor(lws_torch.get_thresholds(MAIN_SWEEPS, 100, 0.1, 1),
+                          dtype=torch.float32, device=local[0].device)
+    live = sweeps_mod.sweep_schedule(*local, thr, sharding._global_mean(*local, mesh))[2]
+    B, T, F = local[0].shape
+    return sweep_bound(proc._st_batch, proc.batch_inner_passes, live, T, F, B)[:2]
+
+
+def _shard_case_a(s, torch, lws_torch, par, sweeps_mod):
+    """(a) one NCCL rank, mesh (1, 1): batch_lws(mesh=) on the batch path's
+    input against batch_lws() without a mesh. One time shard has nothing to
+    exchange: the sweeps are one K1 launch, bit-equal to the unsharded."""
+    dev = torch.device(DEVICE)
+    x = make_batch(MAIN_B, int(MAIN_SECONDS * SAMPLE_RATE), SAMPLE_RATE,
+                   np.random.default_rng(0))
+    proc = lws_torch.LWS(512, 128, device=dev)
+    sr, si = proc.stft_ri(x)
+    amp = torch.sqrt(sr * sr + si * si)
+    pair = (amp, torch.zeros_like(amp))
+    mesh = par.make_mesh(1, 1, device=dev)
+    shared = par.multihost.ranks_per_card(dev)  # an all-gather on the NCCL group
+    out, launches, k1_ms, wall = _timed_run(
+        s, torch, sweeps_mod, lambda: proc.batch_lws(pair, MAIN_SWEEPS, mesh=mesh), warm=True)
+    s.check(launches == 1, f"(a) K1 launches in batch_lws(mesh=(1, 1)): {launches} (one "
+            f"time shard, nothing to exchange: 1 for the {MAIN_SWEEPS} sweeps)")
+    bound_ms, bound_by = _shard_bound(torch, lws_torch, sweeps_mod, proc, pair, mesh)
+    mag = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - amp).abs()
+                 / amp.clamp_min(1e-30)).max())
+    c_sh = float(proc.get_consistency(out).mean())
+    c_un = float(proc.get_consistency(proc.batch_lws(pair, MAIN_SWEEPS)).mean())
+    s.check(mag <= TOL_MAGNITUDE and abs(c_sh - c_un) <= TOL_SHARD_DB,
+            f"(a) from |X|: magnitudes {mag:.2e} (tol {TOL_MAGNITUDE:g}); consistency "
+            f"{c_sh:.4f} dB vs unsharded {c_un:.4f} dB: {abs(c_sh - c_un):.4f} dB "
+            f"(tol {TOL_SHARD_DB})")
+    r0, i0, ramp = random_phases(torch, np.random.default_rng(21), sr, si)
+    sh = proc.batch_lws((r0, i0), MAIN_SWEEPS, mesh=mesh)
+    d, rel = _rel(torch, sh, proc.batch_lws((r0, i0), MAIN_SWEEPS), ramp)
+    s.check(d == 0, f"(a) from random phases: max|d| {d:.3e} against batch_lws() (bit-equal "
+            f"expected: the same launch on the same input)")
+    return dict(backend="nccl", mesh=[1, 1], ranks_per_card=shared, launches=launches,
+                k1_ms=k1_ms, wall_ms=wall, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=d, rel_err=rel, consistency_db=c_sh, unsharded_db=c_un)
+
+
+def _shard_case_b(s, torch, lws_torch, par, sweeps_mod, rank, x_long):
+    """(b) mesh (1, PAR_RANKS), kernel="tiled", longform's geometry on the
+    prefix: from |X| against the unsharded batch_lws; from random phases
+    against segmented_lws_sweeps given the same mean."""
+    from lws_torch.parallel import sharding
+    from lws_torch.ops import segmented as seg_mod
+    import torch.distributed as dist
+    dev = torch.device(DEVICE)
+    proc = lws_torch.LWS(LONG_FSIZE, LONG_FSHIFT, device=dev)
+    sr, si = proc.stft_ri(x_long)
+    T = sr.shape[-2] // PAR_RANKS * PAR_RANKS
+    sr, si = sr[:, :T].contiguous(), si[:, :T].contiguous()
+    amp = torch.sqrt(sr * sr + si * si)
+    pair = (amp, torch.zeros_like(amp))
+    mesh = par.make_mesh(1, PAR_RANKS, device=dev)
+    dist.barrier()
+    out, launches, k1_ms, wall = _timed_run(
+        s, torch, sweeps_mod, lambda: proc.batch_lws(pair, MAIN_SWEEPS, mesh=mesh, kernel="tiled",
+                                                     sweeps_per_exchange=PAR_EXCHANGE))
+    blocks = -(-MAIN_SWEEPS // PAR_EXCHANGE)
+    s.check(launches == blocks, f"(b) K1 launches on this rank: {launches} (one per "
+            f"{PAR_EXCHANGE}-sweep block: {blocks})")
+    bound_ms, bound_by = _shard_bound(torch, lws_torch, sweeps_mod, proc, pair, mesh)
+    st, ip, scheme = proc._st_batch, proc.batch_inner_passes, proc.inner_scheme
+    thr = torch.as_tensor(lws_torch.get_thresholds(PAR_CASE_SWEEPS, 1, 0.1, 1),
+                          dtype=torch.float32, device=dev)
+    r0, i0, ramp = random_phases(torch, np.random.default_rng(22), sr, si)
+    local = sharding.shard_pair((r0, i0), mesh, time_sharded=True)
+    mean = sharding._global_mean(*local, mesh)
+    sh = sharding.gather_pair(sharding.sharded_lws_sweeps(
+        *local, st, thr, mesh, inner_passes=ip, inner_scheme=scheme, kernel="tiled",
+        sweeps_per_exchange=PAR_EXCHANGE), mesh)
+    res = dict(backend="gloo", mesh=[1, PAR_RANKS], shape=[1, int(T), int(sr.shape[-1])],
+               launches=launches, k1_ms=k1_ms, wall_ms=wall, bound_ms=bound_ms,
+               bound_by=bound_by)
+    if rank == 0:
+        mag = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - amp).abs()
+                     / amp.clamp_min(1e-30)).max())
+        s.check(mag <= TOL_MAGNITUDE, f"(b) magnitudes preserved: {mag:.2e} "
+                f"(tol {TOL_MAGNITUDE:g})")
+        seg = seg_mod.segmented_lws_sweeps(r0, i0, st, thr, segments=PAR_RANKS,
+                                           sweeps_per_exchange=PAR_EXCHANGE, inner_passes=ip,
+                                           inner_scheme=scheme, mean_amp=mean)
+        d, rel = _rel(torch, sh, seg, ramp)
+        s.check(d == 0,
+                f"(b) from random phases, {PAR_CASE_SWEEPS} sweeps at alpha=1: gathered vs "
+                f"segmented_lws_sweeps(segments={PAR_RANKS}, sweeps_per_exchange="
+                f"{PAR_EXCHANGE}) on K1 given the same mean: max|d| {d:.3e}, /max amp "
+                f"{rel:.3e} (bit-equal expected: the same blocks, halos and frozen ends)")
+        t0 = time.perf_counter()
+        whole = proc.batch_lws(pair, MAIN_SWEEPS)
+        s.sync()
+        un_ms = 1e3 * (time.perf_counter() - t0)
+        c_sh = float(proc.get_consistency(out)[0])
+        c_un = float(proc.get_consistency(whole)[0])
+        S_un = proc._auto_segments(1, T)
+        s.check(abs(c_sh - c_un) <= TOL_SHARD_MEAN_DB,
+                f"(b) from |X|: sharded {c_sh:.4f} dB vs unsharded (S = {S_un}, exchange every "
+                f"{proc._SWEEPS_PER_EXCHANGE}) {c_un:.4f} dB: delta {c_sh - c_un:+.4f} dB "
+                f"(tol {TOL_SHARD_MEAN_DB})")
+        res.update(max_abs_err=d, rel_err=rel, consistency_db=c_sh, unsharded_db=c_un,
+                   unsharded_segments=S_un, unsharded_ms=un_ms)
+    dist.barrier()
+    return res
+
+
+def _shard_case_c(s, torch, lws_torch, par, sweeps_mod, rank):
+    """(c) the batch path's input over meshes (4, 1) (from random phases,
+    per utterance against batch_lws(): one time shard, so one K1 launch a
+    rank) and (2, 2) (from |X|, batch-mean consistency against
+    batch_lws())."""
+    import torch.distributed as dist
+    dev = torch.device(DEVICE)
+    x = make_batch(MAIN_B, int(MAIN_SECONDS * SAMPLE_RATE), SAMPLE_RATE,
+                   np.random.default_rng(0))
+    proc = lws_torch.LWS(512, 128, device=dev)
+    sr, si = proc.stft_ri(x)
+    r0, i0, amp = random_phases(torch, np.random.default_rng(23), sr, si)
+    pair = (amp, torch.zeros_like(amp))
+    res = {}
+    for shape, start in (((PAR_RANKS, 1), (r0, i0)), ((2, 2), pair)):
+        mesh = par.make_mesh(*shape, device=dev)
+        dist.barrier()
+        out, launches, k1_ms, wall = _timed_run(
+            s, torch, sweeps_mod, lambda: proc.batch_lws(start, MAIN_SWEEPS, mesh=mesh),
+            warm=True)
+        key = f"{shape[0]}x{shape[1]}"
+        want = MAIN_SWEEPS if shape[1] > 1 else 1
+        s.check(launches == want, f"(c) mesh {shape}: K1 launches on this rank {launches} "
+                f"({'one per sweep' if shape[1] > 1 else 'one time shard: one launch'}: {want})")
+        bound_ms, bound_by = _shard_bound(torch, lws_torch, sweeps_mod, proc, start, mesh)
+        res[key] = dict(backend="gloo", mesh=list(shape), launches=launches, k1_ms=k1_ms,
+                        wall_ms=wall, bound_ms=bound_ms, bound_by=bound_by)
+        if rank == 0:
+            whole = proc.batch_lws(start, MAIN_SWEEPS)
+            if start is pair:
+                c_sh = proc.get_consistency(out)
+                c_un = proc.get_consistency(whole)
+                dm = float(c_sh.mean() - c_un.mean())
+                s.check(abs(dm) <= TOL_SHARD_MEAN_DB,
+                        f"(c) mesh {shape} from |X|: batch-mean consistency "
+                        f"{float(c_sh.mean()):.4f} dB vs unsharded {float(c_un.mean()):.4f} dB: "
+                        f"delta {dm:+.4f} dB (tol "
+                        f"{TOL_SHARD_MEAN_DB}); per utterance within "
+                        f"{float((c_sh - c_un).abs().max()):.4f} dB")
+                res[key].update(consistency_db=float(c_sh.mean()), unsharded_db=float(c_un.mean()))
+            else:
+                d, rel = max(_rel(torch, (out[0][b], out[1][b]), (whole[0][b], whole[1][b]),
+                                  amp[b]) for b in range(MAIN_B))
+                s.check(np.isfinite(rel) and rel <= TOL_CASE,
+                        f"(c) mesh {shape} from random phases: per utterance max|d| {d:.3e}, "
+                        f"/max amp {rel:.3e} against batch_lws() (tol {TOL_CASE:g}; "
+                        f"{'bit-equal' if d == 0 else 'not bit-equal: the per-item mean is a '}"
+                        f"{'' if d == 0 else 'reduction over 8 items here, over 32 there'})")
+                res[key].update(max_abs_err=d, rel_err=rel)
+        dist.barrier()
+    return res
+
+
+def _shard_case_d(s, torch, lws_torch, par, rank, x_long):
+    """(d) order="jacobi_mxu" over (1, PAR_RANKS) at F = 2049."""
+    dev = torch.device(DEVICE)
+    proc = lws_torch.LWS(LONG_FSIZE, LONG_FSHIFT, order="jacobi_mxu", device=dev)
+    sr, si = proc.stft_ri(x_long[:, :(PAR_MXU_FRAMES + 3) * LONG_FSHIFT])
+    r0, i0, amp = random_phases(torch, np.random.default_rng(24), sr[:, :PAR_MXU_FRAMES],
+                                si[:, :PAR_MXU_FRAMES])
+    thr = lws_torch.get_thresholds(2, 1, 0.1, 1)
+    out = proc.batch_lws((r0, i0), thresholds=thr, mesh=par.make_mesh(1, PAR_RANKS, device=dev))
+    if rank == 0:
+        rel = _rel(torch, out, proc.batch_lws((r0, i0), thresholds=thr), amp)[1]
+        s.check(np.isfinite(rel) and rel <= TOL_MXU_SHARD,
+                f"(d) jacobi_mxu over (1, {PAR_RANKS}), {tuple(r0.shape)}, 2 sweeps: "
+                f"max|d|/max amp {rel:.3e} against the unsharded order (tol {TOL_MXU_SHARD:g})")
+        return dict(shape=list(r0.shape), rel_err=rel)
+    return {}
+
+
+def _shard_case_e(s, torch, lws_torch, par):
+    """(e) scaling_report over the ranks that share the card."""
+    rep = par.scaling_report(lws_torch.LWS(512, 128, device=torch.device(DEVICE)),
+                             T_frames=PAR_REPORT_FRAMES, iters=PAR_REPORT_SWEEPS,
+                             time_shards=PAR_RANKS, kernel="tiled")
+    want = {"T", "F", "iters", "shards", "kernel", "platform", "wall_1dev_s", "wall_Ndev_s",
+            "speedup", "efficiency", "estimate_only"}
+    s.check(set(rep) == want and rep["estimate_only"] is True and rep["shards"] == PAR_RANKS,
+            f"(e) scaling_report(time_shards={PAR_RANKS}, kernel='tiled'): {rep}")
+    return rep
+
+
+def _parallel_rank(rank, world, backend, root, x_long):
+    """Phase 12's rank `rank` of `world`: joins the group through a file
+    store under `root`, runs its cases and writes its record to
+    root/rank<rank>.json. An exception propagates: the parent's join
+    re-raises it."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    import lws_torch
+    from lws_torch import parallel as par
+    from lws_torch.ops import lws_sweeps as sweeps_mod
+    # the ranks share the host's cores: torch's default threads each would
+    # oversubscribe them many times over
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    par.init_distributed(coordinator_address=f"file://{root}/store", num_processes=world,
+                         process_id=rank, backend=backend, timeout=PAR_TIMEOUT_S)
+    s = RankChecks(torch)
+    rec = dict(rank=rank, backend=dist.get_backend(), card=torch.cuda.get_device_name())
+    if world == 1:
+        rec["a"] = _shard_case_a(s, torch, lws_torch, par, sweeps_mod)
+    else:
+        rec["ranks_per_card"] = par.multihost.ranks_per_card(torch.device(DEVICE))
+        rec["b"] = _shard_case_b(s, torch, lws_torch, par, sweeps_mod, rank, x_long)
+        rec["c"] = _shard_case_c(s, torch, lws_torch, par, sweeps_mod, rank)
+        rec["d"] = _shard_case_d(s, torch, lws_torch, par, rank, x_long)
+        rec["e"] = _shard_case_e(s, torch, lws_torch, par)
+    rec["checks"] = s.checks
+    dist.destroy_process_group()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _spawn_ranks(s, torch, world, backend, x_long):
+    """Run `world` ranks of _parallel_rank; returns their records by rank
+    ([] when a rank failed: recorded as a failed check)."""
+    import shutil
+    root = os.path.join(ROOT, "build", f"parallel_smoke_{backend}")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        _parallel_rank, args=(world, backend, root, x_long), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + PAR_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the ranks did not finish within {PAR_JOIN_S} s")
+    except Exception as e:  # a rank's exception or the time limit: the phase fails
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        s.check(False, f"phase 12, {world} {backend} rank(s): {type(e).__name__}: {e}")
+        return []
+    print(f"  {world} {backend} rank(s) spawned, joined and finished in "
+          f"{time.perf_counter() - t0:.1f} s")
+    recs = []
+    for r in range(world):
+        with open(os.path.join(root, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+        for ok, what in recs[-1]["checks"]:
+            s.check(ok, f"rank {r}: {what}")
+    return recs
+
+
+def parallel_phase(s, torch):
+    """Phase 12: the sharded sweeps on the card, cases (a)-(e). Returns K1's
+    `sharded` entry for the kernels line."""
+    n = int(LONG_SECONDS * LONG_RATE)
+    x_long = make_batch(1, n, LONG_RATE, np.random.default_rng(LONG_SEED))[
+        :, :int(PAR_LONG_SECONDS * LONG_RATE)].copy()
+    print(f"sharded sweeps (lws_torch.parallel): (a) 1 NCCL rank, mesh (1, 1), "
+          f"LWS(512, 128) on {MAIN_B} x {MAIN_SECONDS:g} s; (b)-(e) {PAR_RANKS} gloo ranks that "
+          f"share this one card (halos staged through host memory), so no figure here is a "
+          f"scaling figure")
+    out = {}
+    recs = _spawn_ranks(s, torch, 1, "nccl", None)
+    if recs:
+        a = recs[0]["a"]
+        print(f"  (a) backend {recs[0]['backend']}, mesh (1, 1), ranks per card "
+              f"{a['ranks_per_card']}: wall {a['wall_ms']:.2f} ms, K1 {a['launches']} "
+              f"launches, {a['k1_ms']:.2f} ms (bound {a['bound_ms']:.4f} ms by "
+              f"{a['bound_by']}); consistency {a['consistency_db']:.4f} dB "
+              f"(unsharded {a['unsharded_db']:.4f}); from random phases max|d| "
+              f"{a['max_abs_err']:.3e}")
+        out["a"] = dict(a, launches_per_rank=[a["launches"]], k1_ms_per_rank=[a["k1_ms"]],
+                        wall_ms_per_rank=[a["wall_ms"]], bound_ms_per_rank=[a["bound_ms"]])
+    recs = _spawn_ranks(s, torch, PAR_RANKS, "gloo", x_long)
+    if recs:
+        shared = recs[0]["ranks_per_card"]
+        b = recs[0]["b"]
+        out["b"] = dict(b, ranks_per_card=shared,
+                        launches_per_rank=[r["b"]["launches"] for r in recs],
+                        k1_ms_per_rank=[r["b"]["k1_ms"] for r in recs],
+                        wall_ms_per_rank=[r["b"]["wall_ms"] for r in recs],
+                        bound_ms_per_rank=[r["b"]["bound_ms"] for r in recs])
+        print(f"  (b) backend {recs[0]['backend']}, mesh (1, {PAR_RANKS}), {shared} ranks on "
+              f"one card, LWS({LONG_FSIZE}, {LONG_FSHIFT}) on the first {PAR_LONG_SECONDS:g} s "
+              f"of the {LONG_SECONDS:g} s stream {tuple(b['shape'])} (depth cut from "
+              f"{LONG_SECONDS:g} s), {MAIN_SWEEPS} sweeps, exchange every {PAR_EXCHANGE}: "
+              f"per rank wall {[round(v, 2) for v in out['b']['wall_ms_per_rank']]} ms, K1 "
+              f"launches {out['b']['launches_per_rank']}, K1 "
+              f"{[round(v, 2) for v in out['b']['k1_ms_per_rank']]} ms, bound "
+              f"{[round(v, 4) for v in out['b']['bound_ms_per_rank']]} ms by {b['bound_by']} "
+              f"(ranks sharing one card: no scaling figure); unsharded batch_lws "
+              f"{b['unsharded_ms']:.2f} ms")
+        for key in recs[0]["c"]:
+            c = recs[0]["c"][key]
+            out[f"c_{key}"] = dict(c, ranks_per_card=shared,
+                                   launches_per_rank=[r["c"][key]["launches"] for r in recs],
+                                   k1_ms_per_rank=[r["c"][key]["k1_ms"] for r in recs],
+                                   wall_ms_per_rank=[r["c"][key]["wall_ms"] for r in recs],
+                                   bound_ms_per_rank=[r["c"][key]["bound_ms"] for r in recs])
+            print(f"  (c) backend gloo, mesh {tuple(c['mesh'])}: per rank wall "
+                  f"{[round(v, 2) for v in out[f'c_{key}']['wall_ms_per_rank']]} ms, K1 "
+                  f"launches {out[f'c_{key}']['launches_per_rank']}, K1 "
+                  f"{[round(v, 2) for v in out[f'c_{key}']['k1_ms_per_rank']]} ms, bound "
+                  f"{[round(v, 4) for v in out[f'c_{key}']['bound_ms_per_rank']]} ms")
+        out["d"] = recs[0]["d"]
+        out["e"] = recs[0]["e"]
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2122,14 +2513,17 @@ def main():
     vocoder = vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas)
     resumable = resumable_path(s, torch, lws_torch, sweeps_mod)
     gradient = gradient_path(s, torch, lws_torch, sweeps_mod)
+    torch.cuda.empty_cache()  # the ranks of phase 12 share this card
+    sharded = parallel_phase(s, torch)
     # K1: the longform path's run at the top; the batch path's run, the
     # music path's batch stage, the vocoder and resumable runs nested, each
     # from its own run; beside them the plain paths that launch no kernel
-    # (fast mode's Jacobi orders, the gradients)
+    # (fast mode's Jacobi orders, the gradients); the sharded runs of phase
+    # 12, each rank's from its own run
     entry = dict(name="lws_sweeps", route="cuda", source="lws_torch/csrc/lws_sweeps.cu",
                  replaces="lws_tpu/ops/pallas_packed.py:1411", library_ms=None,
                  **longform, batch=batch_sweeps, music=music_sweeps, vocoder=vocoder,
-                 resumable=resumable, fast_mode=fast, gradient=gradient)
+                 resumable=resumable, fast_mode=fast, gradient=gradient, sharded=sharded)
     entry["max_abs_err"] = worst
     online_entry["max_abs_err"] = max(worst_online, worst_new[False])
     chunk_entry["max_abs_err"] = max(worst_chunk, worst_new[True])

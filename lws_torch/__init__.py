@@ -20,9 +20,10 @@ kernels (lws_torch/csrc/lws_sweeps.cu, lws_torch/csrc/lws_online.cu);
 they have no backward, so gradients need backend="torch" (the plain
 versions, which autograd differentiates).
 
-Entry points run on CUDA unless the caller passes device="cpu". lws_torch
-imports neither jax nor lws_tpu. Not ported yet: the device meshes of
-lws_tpu.parallel (batch_lws(mesh=)).
+Multi-card execution (lws_tpu.parallel's meshes, data parallelism and
+time-sharded sweeps, `batch_lws(mesh=)`) is `lws_torch.parallel`, on
+torch.distributed. Entry points run on CUDA unless the caller passes
+device="cpu". lws_torch imports neither jax nor lws_tpu.
 """
 from __future__ import annotations
 

@@ -101,8 +101,8 @@ def resumable_lws(proc, S, stage="batch", iterations=None, thresholds=None,
     `checkpoint_path`, the run resumes from its iteration. checkpoint_every:
     sweeps per chunk, one stage call each. progress: an optional callback
     (done, total) after each chunk. cleanup: delete the checkpoint on
-    success. mesh / **stage_kwargs: forwarded to the stage (the time-sharded
-    batch stage, mesh=, is not ported yet and raises there).
+    success. mesh / **stage_kwargs: forwarded to the stage (mesh=, kernel=,
+    sweeps_per_exchange= to the time-sharded batch stage, as lws_tpu).
 
     Returns a host complex array for a complex array, a host (sr, si) pair
     of arrays for a pair, as lws_tpu does.

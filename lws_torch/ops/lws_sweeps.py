@@ -139,19 +139,19 @@ def sweep_schedule(sr, si, thresholds, mean_amp=None):
     return amp, thr, live
 
 
-def refuse_grad(entry: str, *tensors) -> None:
-    """Raise a ValueError naming backend='torch' when grad mode is on and any
-    of `tensors` (tensors, or tuples of them, or None) requires grad: a CUDA
-    kernel's output has no grad_fn, so the gradient would be lost without a
-    word."""
+def refuse_grad(entry: str, *tensors, reason: str | None = None) -> None:
+    """Raise a ValueError when grad mode is on and any of `tensors` (tensors,
+    or tuples of them, or None) requires grad: a CUDA kernel's output has no
+    grad_fn, so the gradient would be lost without a word. The message
+    names `entry` and `reason` (default: the kernel, and backend='torch')."""
     if not torch.is_grad_enabled():
         return
     flat = [t for x in tensors for t in (x if isinstance(x, (tuple, list)) else (x,))]
     if any(torch.is_tensor(t) and t.requires_grad for t in flat):
-        raise ValueError(
-            f"lws_torch: {entry} launches a CUDA kernel, which has no backward, on a "
-            "tensor that requires grad; use backend='torch' for the plain PyTorch "
-            "version, which autograd differentiates")
+        reason = reason or (
+            "launches a CUDA kernel, which has no backward; use backend='torch' for the "
+            "plain PyTorch version, which autograd differentiates")
+        raise ValueError(f"lws_torch: {entry} refuses a tensor that requires grad: it {reason}")
 
 
 def _schedule_args(st: Stencil, inner_passes: int, inner_scheme: str):

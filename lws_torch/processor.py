@@ -38,8 +38,10 @@ CUDA and without `device`, construction raises. The kernels have no
 backward: autograd through the stages needs backend="torch" (a CUDA tensor
 that requires grad raises in the kernels' wrappers).
 
-Not ported yet: batch_lws(mesh=...) raises NotImplementedError naming
-ROADMAP A14. The TPU launch knobs (pallas_*) are not carried over.
+`batch_lws(mesh=...)` runs the batch sweeps time-sharded over the ranks
+of a `lws_torch.parallel` mesh (torch.distributed), each shard on the
+sweep kernel for CUDA float32 "gs" (lws_tpu.parallel's route). The TPU
+launch knobs (pallas_*) are not carried over.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ from . import stft as _stft
 from ._device import real_dtype, resolve_device
 from .core.batch import ORDERS, lws_sweeps
 from .core.stencil import check_precision, make_stencil, merge, split
-from .ops.lws_sweeps import tiled_lws_sweeps
+from .ops.lws_sweeps import sweep_plan, tiled_lws_sweeps
 from .ops.online import packed_rtisi_la
 from .ops.segmented import segmented_lws_sweeps
 from .weights import build_stencil, create_weights
@@ -398,21 +400,54 @@ class LWS:
                                    inner_scheme=self.inner_scheme, backend=self.backend)
         return self._ret(pair, was_pair)
 
-    def batch_lws(self, S, iterations=None, thresholds=None, mesh=None):
-        """Full batch LWS sweeps (the library default's main path)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "lws_torch: time-sharded batch_lws (mesh=) is ROADMAP A14")
+    def batch_lws(self, S, iterations=None, thresholds=None, mesh=None, kernel=None,
+                  sweeps_per_exchange=1):
+        """Full batch LWS sweeps (the library default's main path).
+
+        With `mesh` (a ('data', 'time') mesh of lws_torch.parallel), every
+        rank of the mesh passes the whole S at once; the sweeps run
+        time-sharded (lws_torch.parallel.sharded_lws_sweeps, halos exchanged
+        between time neighbours) and every rank returns the whole result
+        (all-gathered over both axes). `kernel` picks each shard's sweeps:
+        None chooses "tiled" (the sweep kernel on blocks of
+        `sweeps_per_exchange` sweeps) for CUDA float32 with order "gs", else
+        "xla" (the plain sweeps of `order`, an exchange every sweep);
+        "tiled" / "xla" force one. "tiled" on a geometry the kernel's plan
+        does not fit raises, chosen or forced. With a mesh, macro chunks and
+        time segments are bypassed: each shard runs whole; a mesh with one
+        time shard runs the unsharded sweeps on each rank's utterances.
+        """
         if iterations is None:
             iterations = self.batch_iterations
         thr = self._thr(iterations, self.batch_alpha, self.batch_beta,
                         self.batch_gamma, thresholds)
         was_pair = self._is_pair(S)
         pair = self._as_pair(S)
-        if thr.shape[0]:
+        if thr.shape[0] and mesh is not None:
+            pair = self._sharded_sweeps(pair, thr, mesh, kernel, sweeps_per_exchange)
+        elif thr.shape[0]:
             pair = self._sweep_fn(pair, thr, self._st_batch,
                                   self.batch_inner_passes, self.inner_scheme)
         return self._ret(pair, was_pair)
+
+    def _sharded_sweeps(self, pair, thr, mesh, kernel, sweeps_per_exchange):
+        """batch_lws over `mesh`: shard, sweep, gather (lws_tpu's
+        processor.py:804-838 without its TPU-only VMEM plan)."""
+        from .parallel import sharding
+
+        if kernel is None:
+            tiled = (self.device.type == "cuda" and self.rdtype == torch.float32
+                     and self.backend == "auto" and self.order == "gs")
+            kernel = "tiled" if tiled else "xla"
+        if kernel == "tiled" and not sweep_plan(pair[0].shape[-1], self._Qi, self.L).fits:
+            raise ValueError("tiled kernel cannot run this sharded geometry")
+        local = sharding.shard_pair(pair, mesh, time_sharded=True)
+        out = sharding.sharded_lws_sweeps(
+            *local, st=self._st_batch, thresholds=thr, mesh=mesh, order=self.order,
+            inner_passes=self.batch_inner_passes, kernel=kernel,
+            sweeps_per_exchange=int(sweeps_per_exchange), inner_scheme=self.inner_scheme,
+            backend=self.backend, precision=self.precision)
+        return sharding.gather_pair(out, mesh)
 
     def run_lws(self, S):
         """The 3-stage pipeline: no-future -> online -> batch

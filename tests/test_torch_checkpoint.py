@@ -165,8 +165,12 @@ def test_stage_and_mesh_contract(proc, spec):
         tck.resumable_lws(proc, spec, stage="online", iterations=4)
     with pytest.raises(ValueError, match="batch stage only"):
         tck.resumable_lws(proc, spec, stage="nofuture", iterations=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="A14"):  # forwarded to batch_lws
-        tck.resumable_lws(proc, spec, iterations=2, mesh=object())
+    # forwarded to batch_lws: a mesh of one rank, no process group
+    from lws_torch.parallel import make_mesh
+    out = tck.resumable_lws(proc, spec, iterations=4, checkpoint_every=2,
+                            mesh=make_mesh(1, 1, device="cpu"))
+    np.testing.assert_allclose(out, tck.resumable_lws(proc, spec, iterations=4,
+                                                      checkpoint_every=2), rtol=0, atol=1e-12)
 
 
 def test_fingerprint_equals_lws_tpu():

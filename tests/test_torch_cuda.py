@@ -427,3 +427,30 @@ def test_long_input_plan_on_cuda(cuda_device):
         np.testing.assert_allclose(np.abs(outs[-1]), np.abs(X), rtol=1e-5, atol=1e-6)
     c = [float(procs[0].get_consistency(o)) for o in outs]
     assert abs(c[0] - c[1]) <= 0.1, c
+
+
+@pytest.mark.cuda
+def test_sharded_batch_lws_runs_on_k1(cuda_device, monkeypatch):
+    """batch_lws(mesh=) over a one-rank mesh (no process group needed):
+    kernel=None picks the tiled route; one time shard has nothing to
+    exchange, so the sweeps are one K1 launch, bit-equal to batch_lws().
+    The sharded route never runs the plain sweeps on the card in place of
+    K1: float64 with kernel="tiled" raises as tiled_lws_sweeps does, and
+    kernel=None on a geometry K1's plan does not fit raises."""
+    from lws_torch import processor
+    from lws_torch.parallel import make_mesh, sharded_lws_sweeps
+    own = lws_torch.LWS(512, 128, device=cuda_device)
+    A, sr, si = _random_phase(own, 100, cuda_device, seed=4)
+    mesh = make_mesh(1, 1, device=cuda_device)
+    before = sweeps_mod.LAUNCHES
+    kr, ki = own.batch_lws((sr, si), 5, mesh=mesh, sweeps_per_exchange=2)
+    assert sweeps_mod.LAUNCHES == before + 1
+    wr, wi = own.batch_lws((sr, si), 5)
+    assert torch.equal(kr, wr) and torch.equal(ki, wi)
+    thr = torch.ones(2, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(TypeError, match="take float32"):
+        sharded_lws_sweeps(sr.double(), si.double(), own._st_batch, thr, mesh, kernel="tiled")
+    plan = processor.sweep_plan(257, own._Qi, own.L)
+    monkeypatch.setattr(processor, "sweep_plan", lambda F, Q, L: plan._replace(bytes=1 << 30))
+    with pytest.raises(ValueError, match="tiled kernel cannot run this sharded geometry"):
+        own.batch_lws((sr, si), 5, mesh=mesh)

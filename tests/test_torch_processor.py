@@ -115,8 +115,12 @@ def test_unported_paths_raise_with_roadmap_item(golden_q4):
         lws_torch.LWS(512, 128, order="bogus", device="cpu")
     p = _proc(golden_q4)
     A = np.abs(golden_q4.S)
-    with pytest.raises(NotImplementedError, match="A14"):
-        p.batch_lws(A, mesh=object())
+    # the device meshes (A14) are ported: a mesh of one rank needs no
+    # process group, and its sweeps equal the unsharded ones (amp is
+    # retaken each sweep, so to 1e-12); tests/test_torch_parallel.py has the rest
+    from lws_torch.parallel import make_mesh
+    np.testing.assert_allclose(p.batch_lws(A, 3, mesh=make_mesh(1, 1, device="cpu")),
+                               p.batch_lws(A, 3), rtol=0, atol=1e-12)
     with pytest.raises(ValueError, match="non-negative"):
         p.batch_lws(np.ones((4, 256)))
     with pytest.raises(TypeError):
