@@ -96,9 +96,19 @@ Phases, in order:
      bit) and the unsharded batch_lws (from |X|); (c) meshes (4, 1) (one
      launch a rank) and (2, 2) on the batch path's input; (d)
      order="jacobi_mxu" over (1, 4) at F = 2049; (e) scaling_report over
-     the four ranks (estimate_only). Per rank: the wall, K1's launches and
-     K1's time (CUDA events); the ranks share one card, so no figure is a
-     scaling figure;
+     the four ranks (estimate_only); (f) lws_torch.entry.dryrun_multichip
+     in the four gloo ranks (mesh (2, 2), its four phases and checks at
+     lws_tpu's sizes) and in the one NCCL rank (mesh (1, 1)), with each
+     phase's K1 launches and phase 1's K3 launch per rank, then (not
+     counted) the K1 and K3 calls it made held against their plain
+     versions at its shapes and on its magnitudes from seeded random
+     phases; (g) the multi-card example's two stages
+     (examples.multichip.run) in both spawns, K1 and K3 launches per rank,
+     and its kernels against their plain versions the same way. Then the
+     multi-card example's command line once (python -m
+     lws_torch.examples.multichip --ranks 4 --device cuda: rc 0 and both
+     result lines). Per rank: the wall, K1's launches and K1's time (CUDA
+     events); the ranks share one card, so no figure is a scaling figure;
  13. the kernels line (JSON), then the result line (JSON) last.
 
 Every timed sweep-kernel (K1) run (the batch path, the music path's batch
@@ -124,6 +134,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -2118,11 +2129,22 @@ def gradient_path(s, torch, lws_torch, sweeps_mod):
 # to TOL_MXU_SHARD x max amp (lws_tpu's dryrun phase 3). The batch-mean
 # consistency of a sharded run from |X| stays within TOL_SHARD_DB of the
 # unsharded one at mesh (1, 1) and within TOL_SHARD_MEAN_DB over 2 or 4
-# time shards (lws_tpu's bound, tests/test_sharding.py:203-251).
+# time shards (lws_tpu's bound, tests/test_sharding.py:203-251). Case (f)
+# runs lws_torch.entry.dryrun_multichip in both spawns at lws_tpu's sizes
+# and tolerances (its own checks raise), case (g) the multi-card example's
+# stages in both, and the example's command line runs once after them, its
+# own PAR_RANKS ranks on this card. After (f) and (g), the kernels they
+# reached run again beside their plain versions on the same magnitudes
+# from seeded random phases (TOL_CASE x max amp; the online stage as phase
+# 3 holds it; batch schedules of more than 3 sweeps their last 3).
 PAR_RANKS, PAR_TIMEOUT_S, PAR_JOIN_S = 4, 300, 600
 PAR_LONG_SECONDS, PAR_EXCHANGE, PAR_CASE_SWEEPS = 120.0, 3, 12
 PAR_MXU_FRAMES = 128
 PAR_REPORT_FRAMES, PAR_REPORT_SWEEPS = 2048, 20  # case (e), scaling_report's defaults
+# case (g): the multi-card example's sizes (examples.multichip.run's
+# defaults: utterances per 'data' rank, seconds, frames per 'time' rank) and
+# its processor's batch sweeps
+EX_UTTERANCES, EX_SECONDS, EX_FRAMES, EX_SWEEPS = 4, 3.0, 256, 50
 TOL_SHARD_DB, TOL_SHARD_MEAN_DB, TOL_MXU_SHARD = 0.05, 0.25, 2e-4
 
 
@@ -2358,6 +2380,213 @@ def _shard_case_e(s, torch, lws_torch, par):
     return rep
 
 
+def _pair_vs_plain(s, torch, what, kern, plain, amp, proc=None):
+    """max|d| of a kernel route's pair against its plain version's, held to
+    TOL_CASE x max amp; for an online stage (`proc` given) over its first
+    ONLINE_EARLY_FRAMES frames, and per item by consistency to
+    TOL_ONLINE_DB, as phase 3's online cases hold K3."""
+    cut = (lambda x: x[..., :ONLINE_EARLY_FRAMES, :]) if proc is not None else (lambda x: x)
+    d = float(torch.maximum((cut(kern[0]) - cut(plain[0])).abs(),
+                            (cut(kern[1]) - cut(plain[1])).abs()).max())
+    rel = d / float(amp.max())
+    dc = 0.0 if proc is None else float(
+        (proc.get_consistency(kern) - proc.get_consistency(plain)).abs().max())
+    s.check(np.isfinite(d) and rel <= TOL_CASE and dc <= TOL_ONLINE_DB,
+            f"{what} {tuple(kern[0].shape)} from random phases, kernel vs plain: "
+            + (f"first {ONLINE_EARLY_FRAMES} frames " if proc is not None else "")
+            + f"max|d|/max amp {rel:.3e} (tol {TOL_CASE:g})"
+            + ("" if proc is None else f", per-item consistency max {dc:.4f} dB "
+               f"(tol {TOL_ONLINE_DB})"))
+    return d
+
+
+def _twin(lws_torch, dev, *args, **kw):
+    """A processor on the kernels and its backend="torch" twin."""
+    return (lws_torch.LWS(*args, device=dev, **kw),
+            lws_torch.LWS(*args, device=dev, backend="torch", **kw))
+
+
+def _stages_vs_plain(s, torch, what, procs, amp, seed, stages):
+    """This rank's stages of `procs` (kernel, plain) on `amp` with seeded
+    random phases: "nofuture" (K1, v = -1) and "batch" (K1) to TOL_CASE x
+    max amp, "online" (K3) as _pair_vs_plain holds it. `stages` maps each
+    stage to its thresholds (None: the processor's schedule). Returns
+    {stage: max|d|}."""
+    start = random_phases(torch, np.random.default_rng(seed), amp, torch.zeros_like(amp))[:2]
+    out = {}
+    for stage, thr in stages.items():
+        k, p = (getattr(proc, f"{stage}_lws")(start, thresholds=thr) for proc in procs)
+        out[stage] = _pair_vs_plain(s, torch, f"{what} {stage}", k, p, amp,
+                                    procs[1] if stage == "online" else None)
+    return out
+
+
+def _sharded_vs_plain(s, torch, what, procs, amp, seed, thr, mesh, rank, **kw):
+    """batch_lws(mesh=, kernel="tiled") of `procs` (K1 on each shard, its
+    halos exchanged; the plain frame loop on each shard) on the global `amp`
+    with seeded random phases, the same on every rank. Collective over the
+    mesh; a rank outside it returns None, and rank 0 compares and returns
+    max|d|."""
+    if mesh.coord is None:
+        return None
+    start = random_phases(torch, np.random.default_rng(seed), amp, torch.zeros_like(amp))[:2]
+    k, p = (proc.batch_lws(start, thresholds=thr, mesh=mesh, kernel="tiled", **kw)
+            for proc in procs)
+    if rank != 0:
+        return None
+    return _pair_vs_plain(s, torch, f"{what} sharded over {tuple(mesh.shape.values())}", k, p,
+                          amp)
+
+
+def _dryrun_vs_plain(s, torch, lws_torch, par, rank, world):
+    """(f)'s kernels against their plain versions at the dry run's shapes,
+    on its magnitudes (entry.dryrun_inputs) with seeded random phases (from
+    zero phase two correct tap orders part by up to 1.3 x max amp: TOL_CASE's
+    note): phase 1's no-future sweep (K1, v = -1) and online stage (K3) on
+    rank 0's 'data' block, and its tiled time-sharded sweeps (blocks of 2)
+    over the dry run's mesh; phase 2's sharded and unsharded sweeps at
+    F = 2049; phase 4's unsharded sweeps and its sharded ones over
+    (1, time), the schedule's last 3 sweeps. Phase 1's 3 sharded sweeps at
+    alpha = 100 are all dead on |N(0, 1)| (lws_tpu's thresholds), so its
+    comparison holds the frozen copy only. Collective; rank 0 compares.
+    Returns {stage: max|d|} on rank 0."""
+    from lws_torch.entry import DRYRUN_SIZES, dryrun_inputs
+    dev = torch.device(DEVICE)
+    data, time_ = par.multihost.mesh_shape(world)
+    mesh, mesh_t = par.make_mesh(data, time_, device=dev), par.make_mesh(1, time_, device=dev)
+    A = {k: torch.as_tensor(v, device=dev) for k, v in dryrun_inputs(world, dev).items()}
+    thr = lws_torch.get_thresholds
+    p1 = _twin(lws_torch, dev, 32, 8, L=2)
+    p2 = _twin(lws_torch, dev, 4096, 1024)
+    p4 = _twin(lws_torch, dev, 512, 128)
+    last3 = thr(DRYRUN_SIZES["p4_sweeps"], 100, 0.1, 1)[-3:]
+    res = {}
+    if rank == 0:
+        res.update({f"phase1_{k}": v for k, v in _stages_vs_plain(
+            s, torch, "(f) phase 1", p1, A["phase1"][:DRYRUN_SIZES["p1_batch"]], 31,
+            dict(nofuture=thr(1, 1, 0.1, 1), online=thr(2, 1, 0.1, 1))).items()})
+        res["phase2_batch"] = _stages_vs_plain(s, torch, "(f) phase 2", p2,
+                                               A["phase2"], 32,
+                                               dict(batch=thr(2, 1, 0.1, 1)))["batch"]
+        res["phase4_batch"] = _stages_vs_plain(s, torch, "(f) phase 4 (last 3 sweeps)",
+                                               p4, A["phase4"], 33, dict(batch=last3))["batch"]
+    res["phase1_sharded"] = _sharded_vs_plain(s, torch, "(f) phase 1", p1, A["phase1"], 34,
+                                              thr(3, 100, 0.1, 1), mesh, rank,
+                                              sweeps_per_exchange=2)
+    res["phase2_sharded"] = _sharded_vs_plain(s, torch, "(f) phase 2", p2, A["phase2"], 35,
+                                              thr(2, 1, 0.1, 1), mesh, rank)
+    res["phase4_sharded"] = _sharded_vs_plain(s, torch, "(f) phase 4 (last 3 sweeps)", p4,
+                                              A["phase4"], 36, last3, mesh_t, rank)
+    s.sync()
+    return res if rank == 0 else {}
+
+
+def _shard_case_f(s, torch, lws_torch, par, sweeps_mod, online_mod, processor_mod, world):
+    """(f) lws_torch.entry.dryrun_multichip(world) in this rank's group at
+    lws_tpu's sizes: its four phases and their checks (a failed check raises
+    in every rank, which fails the run). The counts are set to 0 just
+    before and read just after; each phase's K1 launches on this rank are
+    held to what the phase runs: phase 1 the no-future sweep and the tiled
+    route's blocks of 2 of its 3 sweeps, phase 2 one block per sweep, phase
+    3 none (the Jacobi orders have no kernel), phase 4 one block per sweep
+    on the ranks of its (1, time) mesh, and on rank 0 the unsharded call of
+    phases 2 and 4 (the references run there only); a mesh with one time
+    shard runs each sharded call as one launch. Phase 1's online stage is
+    one K3 launch. K1's time is CUDA
+    events around both names the dry run reaches it by (the sharded blocks
+    through the wrapper's module, the unsharded calls through the
+    processor's). Then, uncounted, _dryrun_vs_plain holds the kernels the
+    dry run reached against their plain versions at its shapes."""
+    import torch.distributed as dist
+    from lws_torch.entry import DRYRUN_SIZES, dryrun_multichip
+    dist.barrier()
+    sweeps_mod.LAUNCHES = 0
+    online_mod.LAUNCHES = 0
+    with KernelTimer(torch, sweeps_mod, "tiled_lws_sweeps") as kt, \
+            KernelTimer(torch, processor_mod, "tiled_lws_sweeps") as kp:
+        t0 = time.perf_counter()
+        rec = dryrun_multichip(world)
+        s.sync()
+        wall = time.perf_counter() - t0
+    k1, k3 = sweeps_mod.LAUNCHES, online_mod.LAUNCHES
+    def sharded(blocks):  # one time shard: the sharded call is one launch
+        return 1 if rec["mesh"][1] == 1 else blocks
+
+    ref = int(rec["rank"] == 0)  # rank 0's unsharded reference call
+    want = dict(phase1=1 + sharded(-(-3 // 2)), phase2=ref + sharded(2), phase3=0,
+                phase4=ref + (sharded(DRYRUN_SIZES["p4_sweeps"]) if rec["phase4"]["in_mesh"]
+                              else 0))
+    got = {p: rec[p]["k1_launches"] for p in want}
+    s.check(got == want and k1 == sum(want.values()),
+            f"(f) dryrun_multichip({world}), mesh {tuple(rec['mesh'])}: K1 launches by phase "
+            f"{got} (want {want}), {k1} in all")
+    s.check(rec["phase1"]["k3_launches"] == 1 and k3 == 1,
+            f"(f) dryrun_multichip({world}): K3 launches in phase 1 "
+            f"{rec['phase1']['k3_launches']}, {k3} in all (want 1: the online stage)")
+    phases = {p: {k: v for k, v in rec[p].items() if not isinstance(v, np.ndarray)}
+              for p in ("phase1", "phase2", "phase3", "phase4")}
+    vs = _dryrun_vs_plain(s, torch, lws_torch, par, rec["rank"], world)
+    return dict(backend=rec["backend"], mesh=rec["mesh"], wall_ms=1e3 * wall,
+                launches=k1, k3_launches=k3, k1_ms=kt.ms() + kp.ms(), phases=phases,
+                vs_plain_max_abs_err=vs)
+
+
+def _shard_case_g(s, torch, lws_torch, par, sweeps_mod, online_mod, world):
+    """(g) the multi-card example's two stages (lws_torch.examples.multichip.run)
+    in this rank's group at its own sizes, counted from 0: per rank the
+    run_lws stage is the no-future and batch sweeps (one K1 launch each)
+    and the online stage (one K3 launch), and the time-sharded batch_lws
+    one K1 launch per sweep (50), or one call over a mesh with one time
+    shard. Magnitudes kept, run_lws above |X|'s consistency per utterance.
+    Then, uncounted, the kernels it reached against their plain versions on
+    its magnitudes with seeded random phases: run_lws's three stages on rank
+    0's utterances (the batch stage its schedule's last 3 sweeps), and the
+    time-sharded stage's last 3 sweeps over the same mesh."""
+    import torch.distributed as dist
+    from lws_torch.examples import multichip
+    dev = torch.device(DEVICE)
+    mesh = par.make_mesh(*par.multihost.mesh_shape(world), device=dev)
+    data, time_ = mesh.shape["data"], mesh.shape["time"]
+    dist.barrier()
+    sweeps_mod.LAUNCHES = 0
+    online_mod.LAUNCHES = 0
+    with KernelTimer(torch, sweeps_mod, "tiled_lws_sweeps") as kt:
+        t0 = time.perf_counter()
+        rec = multichip.run(mesh, EX_UTTERANCES, EX_SECONDS, EX_FRAMES)
+        s.sync()
+        wall = time.perf_counter() - t0
+    k1, k3 = sweeps_mod.LAUNCHES, online_mod.LAUNCHES
+    want = 2 + (1 if time_ == 1 else EX_SWEEPS)
+    s.check(k1 == want and k3 == 1, f"(g) the example's stages over {tuple(rec['mesh'])}: K1 "
+            f"launches {k1} (want {want}: no-future, batch, and the sharded stage), K3 {k3} "
+            f"(want 1)")
+    ok = rec["magnitude_err"] <= TOL_MAGNITUDE and all(
+        c > c0 for c, c0 in zip(rec["consistency"], rec["consistency_in"]))
+    s.check(ok and np.isfinite(rec["long_consistency"]),
+            f"(g) the example's stages: magnitudes {rec['magnitude_err']:.2e} (tol "
+            f"{TOL_MAGNITUDE:g}), run_lws {np.mean(rec['consistency']):.4f} dB over "
+            f"{rec['utterances']} utterances against |X| {np.mean(rec['consistency_in']):.4f}, "
+            f"time-sharded {rec['long_consistency']:.4f} dB")
+    # the example's inputs, drawn as multichip.run draws them
+    procs = _twin(lws_torch, dev, 512, 128, mode="music", batch_iterations=EX_SWEEPS)
+    rng = np.random.default_rng(0)
+    sr, si = procs[0].stft_ri(multichip.tones(EX_UTTERANCES * data, EX_SECONDS, rng))
+    long_amp = torch.as_tensor(np.abs(rng.standard_normal((data, EX_FRAMES * time_, 257))),
+                               dtype=torch.float32, device=dev)
+    k = procs[0]
+    last3 = lws_torch.get_thresholds(EX_SWEEPS, k.batch_alpha, k.batch_beta, k.batch_gamma)[-3:]
+    vs = {}
+    if dist.get_rank() == 0:
+        amp = torch.sqrt(sr * sr + si * si)[:EX_UTTERANCES]
+        vs.update(_stages_vs_plain(s, torch, "(g) run_lws", procs, amp, 41,
+                                   dict(nofuture=None, online=None, batch=last3)))
+    vs["sharded"] = _sharded_vs_plain(s, torch, "(g) the time-sharded stage (last 3 sweeps)",
+                                      procs, long_amp, 42, last3, mesh, dist.get_rank())
+    s.sync()
+    return dict(rec, launches=k1, k3_launches=k3, sharded_k1_ms=kt.ms(), wall_ms=1e3 * wall,
+                vs_plain_max_abs_err=vs if dist.get_rank() == 0 else {})
+
+
 def _parallel_rank(rank, world, backend, root, x_long):
     """Phase 12's rank `rank` of `world`: joins the group through a file
     store under `root`, runs its cases and writes its record to
@@ -2368,7 +2597,9 @@ def _parallel_rank(rank, world, backend, root, x_long):
     sys.path.insert(0, ROOT)
     import lws_torch
     from lws_torch import parallel as par
+    from lws_torch import processor as processor_mod
     from lws_torch.ops import lws_sweeps as sweeps_mod
+    from lws_torch.ops import online as online_mod
     # the ranks share the host's cores: torch's default threads each would
     # oversubscribe them many times over
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
@@ -2384,6 +2615,9 @@ def _parallel_rank(rank, world, backend, root, x_long):
         rec["c"] = _shard_case_c(s, torch, lws_torch, par, sweeps_mod, rank)
         rec["d"] = _shard_case_d(s, torch, lws_torch, par, rank, x_long)
         rec["e"] = _shard_case_e(s, torch, lws_torch, par)
+    rec["f"] = _shard_case_f(s, torch, lws_torch, par, sweeps_mod, online_mod, processor_mod,
+                             world)
+    rec["g"] = _shard_case_g(s, torch, lws_torch, par, sweeps_mod, online_mod, world)
     rec["checks"] = s.checks
     dist.destroy_process_group()
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
@@ -2424,8 +2658,9 @@ def _spawn_ranks(s, torch, world, backend, x_long):
 
 
 def parallel_phase(s, torch):
-    """Phase 12: the sharded sweeps on the card, cases (a)-(e). Returns K1's
-    `sharded` entry for the kernels line."""
+    """Phase 12: the sharded sweeps on the card, cases (a)-(g) and the
+    multi-card example's command line. Returns K1's `sharded` entry for the
+    kernels line."""
     n = int(LONG_SECONDS * LONG_RATE)
     x_long = make_batch(1, n, LONG_RATE, np.random.default_rng(LONG_SEED))[
         :, :int(PAR_LONG_SECONDS * LONG_RATE)].copy()
@@ -2433,9 +2668,10 @@ def parallel_phase(s, torch):
           f"LWS(512, 128) on {MAIN_B} x {MAIN_SECONDS:g} s; (b)-(e) {PAR_RANKS} gloo ranks that "
           f"share this one card (halos staged through host memory), so no figure here is a "
           f"scaling figure")
-    out = {}
+    out, dry = {}, {}
     recs = _spawn_ranks(s, torch, 1, "nccl", None)
     if recs:
+        dry["nccl_1"] = _dryrun_entry(recs)
         a = recs[0]["a"]
         print(f"  (a) backend {recs[0]['backend']}, mesh (1, 1), ranks per card "
               f"{a['ranks_per_card']}: wall {a['wall_ms']:.2f} ms, K1 {a['launches']} "
@@ -2447,6 +2683,7 @@ def parallel_phase(s, torch):
                         wall_ms_per_rank=[a["wall_ms"]], bound_ms_per_rank=[a["bound_ms"]])
     recs = _spawn_ranks(s, torch, PAR_RANKS, "gloo", x_long)
     if recs:
+        dry[f"gloo_{PAR_RANKS}"] = _dryrun_entry(recs)
         shared = recs[0]["ranks_per_card"]
         b = recs[0]["b"]
         out["b"] = dict(b, ranks_per_card=shared,
@@ -2478,7 +2715,86 @@ def parallel_phase(s, torch):
                   f"{[round(v, 4) for v in out[f'c_{key}']['bound_ms_per_rank']]} ms")
         out["d"] = recs[0]["d"]
         out["e"] = recs[0]["e"]
+    if dry:
+        out["dryrun"] = dry
+    out["example_cli"] = _example_cli(s)
     return out
+
+
+def _dryrun_entry(recs):
+    """Case (f)'s records of every rank: each phase's numbers (rank 0's),
+    and per rank the K1 launches by phase, K1's time, the wall and the K3
+    launches."""
+    f0 = recs[0]["f"]
+    res = dict(backend=f0["backend"], mesh=f0["mesh"], phases=f0["phases"],
+               launches_per_rank=[r["f"]["launches"] for r in recs],
+               phase_launches_per_rank=[{p: v["k1_launches"] for p, v in r["f"]["phases"].items()}
+                                        for r in recs],
+               k1_ms_per_rank=[r["f"]["k1_ms"] for r in recs],
+               wall_ms_per_rank=[r["f"]["wall_ms"] for r in recs],
+               k3_launches_per_rank=[r["f"]["k3_launches"] for r in recs],
+               vs_plain_max_abs_err=f0["vs_plain_max_abs_err"],
+               example=dict(recs[0]["g"], launches_per_rank=[r["g"]["launches"] for r in recs],
+                            k3_launches_per_rank=[r["g"]["k3_launches"] for r in recs],
+                            wall_ms_per_rank=[r["g"]["wall_ms"] for r in recs]))
+    ph = f0["phases"]
+    print(f"  (f) dryrun_multichip({len(recs)}), backend {res['backend']}, mesh "
+          f"{tuple(res['mesh'])}: phase 1 xla {ph['phase1']['consistency_xla']:.4f} / tiled "
+          f"{ph['phase1']['consistency_tiled']:.4f} dB; phase 2 unsharded "
+          f"{ph['phase2']['consistency_unsharded']:.4f} / sharded "
+          f"{ph['phase2']['consistency_sharded']:.4f} dB; phase 3 max|d| "
+          f"{ph['phase3']['max_abs_err']:.3e}; phase 4 unsharded "
+          f"{ph['phase4']['consistency_unsharded']:.4f} / sharded "
+          f"{ph['phase4']['consistency_sharded']:.4f} dB; per rank K1 launches "
+          f"{res['launches_per_rank']}, K1 {[round(v, 2) for v in res['k1_ms_per_rank']]} ms, "
+          f"wall {[round(v, 2) for v in res['wall_ms_per_rank']]} ms, K3 launches "
+          f"{res['k3_launches_per_rank']}")
+    print(f"  (f) kernels vs plain at the dry run's shapes, max|d|: "
+          f"{ {k: float(f'{v:.3e}') for k, v in res['vs_plain_max_abs_err'].items()} }")
+    g = res["example"]
+    print(f"  (g) the example's kernels vs plain, max|d|: "
+          f"{ {k: float(f'{v:.3e}') for k, v in g['vs_plain_max_abs_err'].items()} }")
+    print(f"  (g) the example's stages, mesh {tuple(g['mesh'])}: run_lws "
+          f"{np.mean(g['consistency']):.4f} dB over {g['utterances']} utterances (|X| "
+          f"{np.mean(g['consistency_in']):.4f}), time-sharded {tuple(g['long_shape'])} "
+          f"{g['long_consistency']:.4f} dB; per rank K1 launches {g['launches_per_rank']}, "
+          f"K3 {g['k3_launches_per_rank']}, wall {[round(v, 2) for v in g['wall_ms_per_rank']]} "
+          f"ms, rank 0's sharded K1 {g['sharded_k1_ms']:.2f} ms")
+    return res
+
+
+def _example_cli(s):
+    """The multi-card example's command line once: PAR_RANKS ranks that it
+    spawns on this card (gloo), rc 0, both result lines, and the
+    data-parallel consistency above |X|'s. Its process group is killed
+    whole if it outlives PAR_JOIN_S."""
+    cmd = [sys.executable, "-m", "lws_torch.examples.multichip", "--ranks", str(PAR_RANKS),
+           "--device", "cuda"]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                         text=True, start_new_session=True)
+    try:
+        text, err = p.communicate(timeout=PAR_JOIN_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        text, err = p.communicate()
+    wall = time.perf_counter() - t0
+    for line in text.strip().splitlines():
+        print(f"    {line}")
+    dp = re.search(r"^data-parallel run_lws: (\d+) utterances, consistency (\S+) dB "
+                   r"\(\|X\| (\S+) dB", text, re.MULTILINE)
+    ts = re.search(r"^time-sharded batch_lws: T=(\d+) .*consistency (\S+) dB$", text,
+                   re.MULTILINE)
+    ok = p.returncode == 0 and dp is not None and ts is not None
+    s.check(ok and float(dp[2]) > float(dp[3]) and np.isfinite(float(ts[2])),
+            f"example CLI `{' '.join(cmd[1:])}`: rc {p.returncode} in {wall:.1f} s, both "
+            f"result lines {'found' if dp and ts else 'MISSING'}" + (
+                "" if p.returncode == 0 else f"; stderr tail: {err.strip()[-600:]}"))
+    return dict(rc=p.returncode, wall_s=wall,
+                consistency_db=float(dp[2]) if dp else None,
+                abs_x_db=float(dp[3]) if dp else None,
+                long_frames=int(ts[1]) if ts else None,
+                long_consistency_db=float(ts[2]) if ts else None)
 
 
 def main():
@@ -2524,8 +2840,19 @@ def main():
                  replaces="lws_tpu/ops/pallas_packed.py:1411", library_ms=None,
                  **longform, batch=batch_sweeps, music=music_sweeps, vocoder=vocoder,
                  resumable=resumable, fast_mode=fast, gradient=gradient, sharded=sharded)
-    entry["max_abs_err"] = worst
-    online_entry["max_abs_err"] = max(worst_online, worst_new[False])
+    # phase 12 (f) and (g): the kernels the dry run and the example reached,
+    # against their plain versions (rank 0 of each spawn)
+    vs = [(k, v) for d in sharded.get("dryrun", {}).values()
+          for k, v in (*d["vs_plain_max_abs_err"].items(),
+                       *d["example"]["vs_plain_max_abs_err"].items())]
+    entry["max_abs_err"] = max([worst] + [v for k, v in vs if "online" not in k])
+    online_entry["max_abs_err"] = max([worst_online, worst_new[False]]
+                                      + [v for k, v in vs if "online" in k])
+    # K3 in phase 12 (f): the dry run's phase-1 online stage, per rank
+    online_entry["dryrun_phase1_launches"] = {
+        k: v["k3_launches_per_rank"] for k, v in sharded.get("dryrun", {}).items()}
+    online_entry["example_launches"] = {
+        k: v["example"]["k3_launches_per_rank"] for k, v in sharded.get("dryrun", {}).items()}
     chunk_entry["max_abs_err"] = max(worst_chunk, worst_new[True])
     packed_entry["max_abs_err"] = worst_packed
     kernels = [entry, online_entry, chunk_entry, packed_entry]

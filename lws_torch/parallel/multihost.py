@@ -22,23 +22,33 @@ MASTER_ADDR and MASTER_PORT):
 NCCL refuses two ranks on one card. Ranks that share a card run gloo
 (`init_distributed(backend="gloo")`), which stages the halos through host
 memory (sharding.py); their times are no measure of scaling.
+
+Without torchrun, `spawn_ranks(n, device, fn, ...)` starts n ranks from
+the calling process (torch.multiprocessing, a file store in a temporary
+directory) and returns rank 0's result: the multi-card example and
+`lws_torch.entry.dryrun_multichip` run that way when no process group
+exists.
 """
 from __future__ import annotations
 
 import datetime
 import os
 import socket
+import tempfile
 import time as _time
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .._device import resolve_device
 from .sharding import make_mesh, shard_pair, sharded_lws_sweeps
 
-__all__ = ["init_distributed", "make_host_mesh", "scaling_report"]
+__all__ = ["init_distributed", "make_host_mesh", "mesh_shape", "scaling_report", "spawn_ranks"]
 
 _ENV = ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+# seconds that bound every collective of spawn_ranks' process group
+_SPAWN_TIMEOUT_S = 600.0
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -218,3 +228,48 @@ def scaling_report(proc, T_frames: int = 2048, iters: int = 20,
         "efficiency": round(t1 / (tN * n), 3) if tN > 0 else float("nan"),
         "estimate_only": dev.type != "cuda" or shared > 1,
     }
+
+
+def mesh_shape(n: int) -> tuple[int, int]:
+    """lws_tpu's (data, time) split of n ranks for its dry run and its
+    multi-card example: (2, n // 2) for an even n >= 4, else (1, n)."""
+    return (2, n // 2) if n >= 4 and n % 2 == 0 else (1, n)
+
+
+def spawn_ranks(n: int, device, fn, *args):
+    """Run fn(rank_device, *args) on n ranks spawned from this process, and
+    return rank 0's return value.
+
+    The ranks are torch.multiprocessing processes (start method "spawn")
+    that join one default group through a file store in a temporary
+    directory (`init_distributed`): NCCL when each rank has a CUDA card of
+    its own, gloo when the ranks outnumber the cards or `device` is not CUDA
+    (NCCL refuses two ranks on one card). A CUDA rank's device is its own
+    card, or the one card the ranks share. Each rank takes at most this
+    process's torch threads and cores / n. `fn` must be picklable (a
+    module-level function); _SPAWN_TIMEOUT_S bounds every collective. A
+    rank's exception is raised here, with its traceback, and the other ranks
+    are stopped.
+    """
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    backend = "nccl" if cuda and n <= torch.cuda.device_count() else "gloo"
+    with tempfile.TemporaryDirectory() as root:
+        torch.multiprocessing.start_processes(
+            _spawned_rank, args=(n, backend, root, "cuda" if cuda else str(dev), fn, args,
+                                 torch.get_num_threads()),
+            nprocs=n, join=True, start_method="spawn")
+        return torch.load(os.path.join(root, "rank0.pt"), weights_only=False)
+
+
+def _spawned_rank(rank, n, backend, root, device, fn, args, threads):
+    """One rank of spawn_ranks: join, run fn, write rank 0's result."""
+    torch.set_num_threads(max(1, min(threads, (os.cpu_count() or 1) // n)))
+    init_distributed(coordinator_address=f"file://{root}/store", num_processes=n,
+                     process_id=rank, backend=backend, timeout=_SPAWN_TIMEOUT_S)
+    try:
+        out = fn(torch.device(device), *args)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        torch.save(out, os.path.join(root, "rank0.pt"))

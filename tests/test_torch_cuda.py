@@ -454,3 +454,17 @@ def test_sharded_batch_lws_runs_on_k1(cuda_device, monkeypatch):
     monkeypatch.setattr(processor, "sweep_plan", lambda F, Q, L: plan._replace(bytes=1 << 30))
     with pytest.raises(ValueError, match="tiled kernel cannot run this sharded geometry"):
         own.batch_lws((sr, si), 5, mesh=mesh)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_one_rank_on_cuda(cuda_device):
+    """dryrun_multichip(1) spawns one NCCL rank on the card, mesh (1, 1):
+    its four phases pass their own checks at lws_tpu's sizes, each sharded
+    call is one K1 launch (one time shard), the no-future sweep and the
+    unsharded calls one each, phase 1's online stage one K3 launch."""
+    from lws_torch.entry import dryrun_multichip
+    rec = dryrun_multichip(1)
+    assert rec["backend"] == "nccl" and rec["mesh"] == [1, 1]
+    assert [rec[p]["k1_launches"] for p in ("phase1", "phase2", "phase3", "phase4")] == [2, 2, 0, 2]
+    assert rec["phase1"]["k3_launches"] == 1
+    assert abs(rec["phase4"]["consistency_sharded"] - rec["phase4"]["consistency_unsharded"]) < 0.25

@@ -3,7 +3,9 @@ spawned once for the module) run every mesh case in float64, and the
 parent holds the results to lws_tpu.parallel on the 8-device virtual CPU
 mesh tests/conftest.py gives (the counterparts of tests/test_sharding.py),
 to the port's own unsharded and segmented sweeps, and to the contracts of
-the multi-process helpers.
+the multi-process helpers. The same spawn runs the port's dry run
+(`lws_torch.entry.dryrun_multichip`, in-rank) and the two stages of its
+multi-card example; one test spawns the dry run's own two ranks.
 
 The ranks import this module to unpickle their entry point, so it imports
 neither jax nor lws_tpu at the top: the parent's test bodies do, and one
@@ -22,6 +24,8 @@ import torch
 import torch.distributed as dist
 
 import lws_torch
+from lws_torch.entry import dryrun_inputs, dryrun_multichip
+from lws_torch.examples import multichip
 from lws_torch.parallel import (
     data_parallel_run,
     init_distributed,
@@ -41,6 +45,20 @@ JOIN_LIMIT_S = 150
 ORDERS = ("gs", "jacobi", "jacobi_mxu")
 MESHES = ((1, 4), (2, 2))
 F64 = torch.float64
+# The dry run's sizes in the spawn: lws_tpu's (entry.DRYRUN_SIZES) but for
+# phase 2's frames (8 per 'time' rank, not 32: phases 2 and 3 at F = 2049
+# repeat the xla and jacobi_mxu cases above) and phase 4, cut from 8
+# mixtures of 41,088 samples and 100 sweeps (~120 s a rank at one thread)
+# to one of 8,192 samples and 20 sweeps (~1 s); its sharded batch mean keeps
+# the dry run's 0.25 dB bound over time = 2 there (measured +0.046 dB; 12,288
+# samples at 100 sweeps missed it by 0.46 dB). The spawn-route test's
+# smallest table: phase 4's 5 sweeps at alpha = 100 are all dead.
+DRYRUN_TEST_SIZES = dict(p2_frames=8, p4_items=1, p4_samples=8192, p4_sweeps=20)
+DRYRUN_SMALLEST = dict(p1_batch=1, p1_frames=4, p2_frames=4, p4_items=1, p4_samples=4096,
+                       p4_sweeps=5)
+# The example's two stages in the spawn: one 0.25 s utterance per 'data'
+# rank, 16 frames per 'time' rank
+EXAMPLE_TEST_SIZES = dict(utterances=1, seconds=0.25, frames=16)
 
 
 def _golden_q4_spectrogram():
@@ -169,11 +187,18 @@ def _cases(inp):
     def report():
         return scaling_report(proc, T_frames=64, iters=2, time_shards=4, n_rep=1)
 
+    def dryrun():
+        return dryrun_multichip(WORLD, device="cpu", dtype=F64, _sizes=DRYRUN_TEST_SIZES)
+
+    def example():
+        return multichip.run(make_mesh(2, 2, device="cpu"), **EXAMPLE_TEST_SIZES)
+
     return ([("data_parallel", data_parallel)]
             + [(f"xla_{o}_{d}x{t}", xla(o, (d, t))) for o in ORDERS for d, t in MESHES]
             + [("jacobi_t0", jacobi_t0), ("tiled", tiled), ("one_rank", one_rank),
                ("errors", errors), ("longform", longform), ("selection", selection),
-               ("host_mesh", host_mesh), ("mesh_groups", mesh_groups), ("report", report)])
+               ("host_mesh", host_mesh), ("mesh_groups", mesh_groups), ("report", report),
+               ("dryrun", dryrun), ("example", example)])
 
 
 def _rank_main(rank, world, root, inp):
@@ -471,3 +496,123 @@ def test_sharded_sweeps_refuse_grad():
     assert out[0].shape == sr.shape
     with pytest.raises(ValueError, match="need 4 ranks, have 1"):
         make_mesh(1, 4, device="cpu")
+
+
+def _phase_numbers(rec):
+    return {k: v for p in ("phase1", "phase2", "phase3", "phase4") for k, v in rec[p].items()
+            if isinstance(v, float)}
+
+
+def test_dryrun_phases_pass_in_rank(ranks):
+    """dryrun_multichip(4) inside the four ranks (mesh (2, 2), float64 on
+    the CPU): every phase ran on rank 0 and passed its own checks (a failed
+    one raises in every rank), with finite numbers; the CPU launches no
+    kernel."""
+    rec = _get(ranks, "dryrun")
+    assert rec["mesh"] == [2, 2] and rec["backend"] == "gloo" and rec["world"] == WORLD
+    assert rec["phase1"]["shape"] == [4, 16, 17]
+    assert rec["phase2"]["shape"] == [2, 16, 2049]
+    assert rec["phase4"]["in_mesh"] and rec["phase4"]["shape"] == [1, 66, 257]
+    nums = _phase_numbers(rec)
+    assert {"consistency_xla", "consistency_tiled", "consistency_unsharded",
+            "consistency_sharded", "max_abs_err", "consistency"} <= set(nums), nums
+    assert all(np.isfinite(v) for v in nums.values()), nums
+    assert abs(rec["phase4"]["consistency_sharded"]
+               - rec["phase4"]["consistency_unsharded"]) < 0.25
+    assert rec["phase3"]["max_abs_err"] <= 2e-4
+    assert all(rec[p]["k1_launches"] == rec[p]["k3_launches"] == 0
+               for p in ("phase1", "phase2", "phase3", "phase4"))
+    print("dry run in the spawn: rank 0 took %.1f s" % ranks["seconds"]["dryrun"])
+
+
+def test_dryrun_phase1_matches_lws_tpu(ranks):
+    """Phase 1 in float64 against lws_tpu's own composition on a (2, 2)
+    mesh of the virtual CPU devices, same numpy input: _nofuture_fn ->
+    _online_fn data-parallel, then sharded_lws_sweeps(kernel="xla"). From
+    zero phase; the port's "xla" result to 1e-6 x max amp (the online
+    stage's float64 record is 7.5e-7; measured 3.5e-14, held to 1e-10)."""
+    import jax.numpy as jnp
+    from lws_tpu import LWS as JLWS
+    from lws_tpu.core.stencil import merge, split
+    from lws_tpu.parallel import make_mesh as jmesh
+    from lws_tpu.parallel import shard_pair as jshard
+    from lws_tpu.parallel import sharded_lws_sweeps as jsweeps
+    rec = _get(ranks, "dryrun")["phase1"]
+    p = JLWS(32, 8, L=2, dtype=jnp.float64)
+    mesh = jmesh(data=2, time=2)
+    A = np.abs(np.random.default_rng(0).standard_normal((4, 16, 17)))
+    thr = [jnp.asarray(lws_torch.get_thresholds(*a)) for a in
+           ((1, 1, 0.1, 1), (2, 1, 0.1, 1), (3, 100, 0.1, 1))]
+    sr, si = p._nofuture_fn(*jshard(split(A + 0j, dtype=jnp.float64), mesh), thresholds=thr[0])
+    sr, si = p._online_fn(sr, si, thresholds=thr[1])
+    sr, si = jshard((sr, si), mesh, time_sharded=True)
+    ref = np.asarray(merge(*jsweeps(sr, si, st=p._st_batch, thresholds=thr[2], mesh=mesh)))
+    np.testing.assert_array_equal(dryrun_inputs(WORLD, "cpu", F64, DRYRUN_TEST_SIZES)["phase1"], A)
+    err = np.abs(rec["xla"] - ref).max() / A.max()
+    print(f"phase 1, port vs lws_tpu, float64: max|d| / max amp {err:.3e}")
+    assert err <= 1e-10, err
+    np.testing.assert_allclose(np.abs(rec["tiled"]), A, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("n, shape", [(1, (1, 1)), (2, (1, 2)), (3, (1, 3)), (4, (2, 2)),
+                                      (6, (2, 3)), (8, (2, 4))])
+def test_mesh_shape_is_lws_tpus(n, shape):
+    """The dry run's and the example's mesh: lws_tpu's rule
+    (__graft_entry__.py:80-84), (2, n // 2) for an even n >= 4, else (1, n)."""
+    from lws_torch.parallel.multihost import mesh_shape
+    assert mesh_shape(n) == shape
+
+
+def test_example_stages_in_rank(ranks):
+    """The example's two stages over (2, 2): run_lws keeps magnitudes and
+    beats |X|'s consistency on every utterance; the time-sharded batch_lws
+    gives a finite consistency on its (2, 32, 257) spectrogram."""
+    rec = _get(ranks, "example")
+    assert rec["mesh"] == [2, 2] and rec["utterances"] == 2
+    assert rec["magnitude_err"] <= 1e-5, rec["magnitude_err"]
+    assert all(c > c0 for c, c0 in zip(rec["consistency"], rec["consistency_in"])), rec
+    assert rec["long_shape"] == [2, 32, 257] and np.isfinite(rec["long_consistency"])
+
+
+def test_dryrun_spawn_route():
+    """Without a process group dryrun_multichip spawns its ranks: two gloo
+    ranks on the CPU at the smallest table, run from a process without jax;
+    importing lws_torch.entry and lws_torch.examples.multichip and running
+    it leaves jax and lws_tpu out of sys.modules. A rank's failure (a time
+    shard of fewer than Q-1 frames, on one spawned rank) raises in the caller."""
+    import json
+    import subprocess
+    code = (
+        "import json, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import lws_torch.entry as e, lws_torch.examples.multichip\n"
+        f"rec = e.dryrun_multichip(2, device='cpu', _sizes={DRYRUN_SMALLEST!r})\n"
+        "try:\n"
+        "    e.dryrun_multichip(1, device='cpu', _sizes=dict(p2_frames=1))\n"
+        "    failed = None\n"
+        "except Exception as x:\n"
+        "    failed = f'{type(x).__name__}: {x}'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lws_tpu'))\n"
+        "print(json.dumps(dict(mesh=rec['mesh'], backend=rec['backend'], bad=bad, "
+        "failed=failed, nums={p: [v for v in rec[p].values() if isinstance(v, float)] "
+        "for p in ('phase1', 'phase2', 'phase3', 'phase4')})))\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["bad"] == [] and out["mesh"] == [1, 2] and out["backend"] == "gloo", out
+    assert all(np.isfinite(v) for vs in out["nums"].values() for v in vs), out
+    for line in ("dryrun_multichip ok:", "phase2 ok", "phase3 ok", "phase4 ok"):
+        assert line in r.stdout, r.stdout
+    assert out["failed"] and "each time shard needs >= Q-1=3 frames" in out["failed"], out
+
+
+def test_dryrun_and_example_need_a_card_unless_told(monkeypatch):
+    """Without CUDA and without device=, both entry points raise before
+    spawning anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        multichip.main(["--ranks", "1"])
