@@ -5,7 +5,13 @@ LWS phase recovery -> waveform". The filterbank is built on the host in
 numpy float64, as lws_tpu builds it (a copy of its code: the two are equal
 bit for bit), and both projections are one batched `torch.matmul` on the
 data's device. mel_to_linear's pseudo-inverse is a host float64 SVD, cached
-on a sha256 of the filterbank's bytes.
+on a sha256 of the filterbank's bytes, and its transpose is cached again on
+each device and dtype it is applied in, so steady calls copy nothing from
+the host (PINV_BUILDS and PINV_UPLOADS count both).
+
+mel_vocoder_pipeline's two stages run inside `torch.profiler` ranges,
+`lws_torch.mel_to_linear` and `lws_torch.run_lws`, which a profiler's trace
+shows with the device work each launched.
 
 Tensors stay on their device; numpy input goes to `device` (CUDA unless the
 caller names another, as every entry point of the port).
@@ -16,10 +22,17 @@ import hashlib
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ._device import resolve_device
 
-__all__ = ["mel_filterbank", "linear_to_mel", "mel_to_linear", "mel_vocoder_pipeline"]
+__all__ = ["mel_filterbank", "linear_to_mel", "mel_to_linear", "mel_vocoder_pipeline",
+           "PINV_BUILDS", "PINV_UPLOADS"]
+
+# pinv builds (host SVDs) and uploads (to a device and dtype) so far; a
+# path's run is read as a difference.
+PINV_BUILDS = 0
+PINV_UPLOADS = 0
 
 
 def _hz_to_mel(f, htk=False):
@@ -91,7 +104,28 @@ def linear_to_mel(spec_mag, fb, device=None) -> torch.Tensor:
     return spec_mag @ fb.T
 
 
-_PINV_CACHE: dict = {}
+_PINV_CACHE: dict = {}  # (shape, sha256) -> the host float64 pinv
+_PINV_ON_DEVICE: dict = {}  # (shape, sha256, device, dtype) -> its transpose there
+
+
+def _pinv_t(fb, device, dtype) -> torch.Tensor:
+    """The transposed pinv of a filterbank, (n_mels, n_bins), on `device` in
+    `dtype`: built once per filterbank (host SVD, float64, keyed on a
+    sha256 of its bytes: Python's hash() can collide for two filterbanks of
+    one shape), uploaded once per device and dtype."""
+    global PINV_BUILDS, PINV_UPLOADS
+    fb64 = np.ascontiguousarray(np.asarray(fb, dtype=np.float64))
+    key = (fb64.shape, hashlib.sha256(fb64.tobytes()).digest())
+    where = key + (device, dtype)
+    there = _PINV_ON_DEVICE.get(where)
+    if there is None:
+        inv = _PINV_CACHE.get(key)
+        if inv is None:
+            inv = _PINV_CACHE[key] = np.linalg.pinv(fb64)  # (n_bins, n_mels)
+            PINV_BUILDS += 1
+        there = _PINV_ON_DEVICE[where] = torch.as_tensor(inv.T).to(device, dtype)
+        PINV_UPLOADS += 1
+    return there
 
 
 def mel_to_linear(mel_mag, fb, eps: float = 1e-10, device=None) -> torch.Tensor:
@@ -99,17 +133,11 @@ def mel_to_linear(mel_mag, fb, eps: float = 1e-10, device=None) -> torch.Tensor:
 
     The Moore-Penrose pseudo-inverse of the filterbank with a
     non-negativity clamp at `eps`, the Tacotron-style inversion before phase
-    recovery. The pinv is computed once per filterbank (host SVD, float64,
-    cached on a sha256 of its bytes: Python's hash() can collide for two
-    filterbanks of one shape) and applied as one batched matmul.
+    recovery, applied as one batched matmul on the data's device (the pinv
+    is kept there, `_pinv_t`).
     """
     mel_mag = _tensor(mel_mag, device)
-    fb64 = np.ascontiguousarray(np.asarray(fb, dtype=np.float64))
-    key = (fb64.shape, hashlib.sha256(fb64.tobytes()).digest())
-    inv = _PINV_CACHE.get(key)
-    if inv is None:
-        inv = _PINV_CACHE[key] = np.linalg.pinv(fb64)  # (n_bins, n_mels)
-    proj = mel_mag @ torch.as_tensor(inv.T).to(mel_mag.device, mel_mag.dtype)
+    proj = mel_mag @ _pinv_t(fb, mel_mag.device, mel_mag.dtype)
     return torch.clamp_min(proj, eps)
 
 
@@ -128,8 +156,10 @@ def mel_vocoder_pipeline(mel_mag, proc, fb=None, sample_rate=None, return_spec=F
         if sample_rate is None:
             raise ValueError("provide fb or sample_rate")
         fb = mel_filterbank(mel_mag.shape[-1], proc.fftsize, sample_rate)
-    lin = mel_to_linear(mel_mag, fb).to(proc.rdtype)
-    pair = proc.run_lws((lin, torch.zeros_like(lin)))
+    with record_function("lws_torch.mel_to_linear"):
+        lin = mel_to_linear(mel_mag, fb).to(proc.rdtype)
+    with record_function("lws_torch.run_lws"):
+        pair = proc.run_lws((lin, torch.zeros_like(lin)))
     if return_spec:
         return pair
     return proc.istft(pair)

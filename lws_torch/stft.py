@@ -150,10 +150,21 @@ def stft(x, fsize, fshift, awin, fftsize=None, perfectrec=False,
     return torch.complex(sr, si).cpu().numpy()
 
 
+def c2r_spectrum(sr, si) -> torch.Tensor:
+    """torch.complex(sr, si) with the imaginary parts of the DC and Nyquist
+    bins zeroed, as the irfft's input. A real frame cannot hold them:
+    numpy's irfft (the library's) and torch's CPU irfft ignore them, cuFFT's
+    float32 C2R does not. The pair passed in is left as it is."""
+    spec = torch.complex(sr, si)
+    spec.imag[..., 0] = 0
+    spec.imag[..., -1] = 0
+    return spec
+
+
 def _istft(sr, si, swin_t, fshift, fftsize, perfectrec):
     M, Nreal = sr.shape[-2], sr.shape[-1]
     fsize = 2 * (Nreal - 1)
-    spec = torch.complex(sr, si)
+    spec = c2r_spectrum(sr, si)
     # rank 2 before the irfft, as lws_tpu's _istft_jit does (its TPU
     # backend corrupted batched rank>=3 irfft past 16384 frames)
     flat = spec.reshape(-1, Nreal)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .ops import online as _online
-from .stft import frame_signal, overlap_add
+from .stft import c2r_spectrum, frame_signal, overlap_add
 from .windows import get_thresholds
 
 __all__ = ["StreamingLWS", "StreamStats"]
@@ -197,7 +197,7 @@ class StreamingLWS:
 
         # rows outside [skip, end) are pipeline fill or flush padding: they
         # are zeroed before they reach the overlap-add
-        spec = torch.complex(cr, ci)
+        spec = c2r_spectrum(cr, ci)
         spec[:, :skip] = 0
         spec[:, end:] = 0
         frames = torch.fft.irfft(spec, n=proc.fftsize, dim=-1)[..., :fsize] * self._swin

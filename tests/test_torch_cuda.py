@@ -468,3 +468,35 @@ def test_dryrun_multichip_one_rank_on_cuda(cuda_device):
     assert [rec[p]["k1_launches"] for p in ("phase1", "phase2", "phase3", "phase4")] == [2, 2, 0, 2]
     assert rec["phase1"]["k3_launches"] == 1
     assert abs(rec["phase4"]["consistency_sharded"] - rec["phase4"]["consistency_unsharded"]) < 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fftsize", [512, 1024, 2048, 4096])
+def test_istft_and_stream_drop_edge_imaginary_parts(cuda_device, monkeypatch, fftsize):
+    """The float32 iSTFT and StreamingLWS's synthesis on the card against the
+    CPU float64 path, on spectra whose DC and Nyquist bins carry imaginary
+    parts as large as the other bins' (a real frame cannot hold them; numpy's
+    irfft, the library's, drops them; cuFFT's float32 C2R kept them at
+    n = 1024, 1e-3 of the peak). The stream's online stage is made the
+    identity, so the frames pushed are the frames synthesised."""
+    g = torch.Generator().manual_seed(fftsize)
+    sr, si = (torch.randn(2, 12, fftsize // 2 + 1, generator=g, dtype=torch.float64)
+              for _ in range(2))
+    ref = lws_torch.LWS(fftsize, fftsize // 4, device="cpu", dtype=torch.float64)
+    own = lws_torch.LWS(fftsize, fftsize // 4, device=cuda_device)
+    want = ref.istft((sr, si))
+    got = own.istft((sr.float().to(cuda_device), si.float().to(cuda_device))).cpu().double()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    monkeypatch.setattr(online_mod, "online_chunk",
+                        lambda fr, fi, state, *args: (fr, fi, state))
+    frames = torch.complex(sr, si).transpose(0, 1)  # (N, S, F)
+
+    def run(proc, specs):
+        st = lws_torch.StreamingLWS(proc, streams=2, block_frames=4)
+        return np.concatenate([st.push_frames(specs), st.flush()], axis=-1)
+
+    want = run(ref, frames)
+    got = run(own, frames.to(torch.complex64))
+    assert got.shape == want.shape and np.abs(want).max() > 0
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()

@@ -91,6 +91,22 @@ def test_pinv_cache_and_devices():
             tmel.linear_to_mel(np.ones((3, 129)), fb)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pinv_built_and_uploaded_once(dtype):
+    """Two calls on one filterbank build its pinv once and put it on the
+    data's device once, and give what the pinv applied afresh on every call
+    gives, bit for bit: the matmul by its transpose, clamped at eps."""
+    fb = tmel.mel_filterbank(24, 320, 11025, fmin=37.0 if dtype == torch.float32 else 41.0)
+    mel = torch.rand(3, 7, 24, dtype=dtype, generator=torch.Generator().manual_seed(1))
+    builds, uploads = tmel.PINV_BUILDS, tmel.PINV_UPLOADS
+    got = [tmel.mel_to_linear(mel, fb), tmel.mel_to_linear(mel * 0.5, fb.copy())]
+    assert (tmel.PINV_BUILDS, tmel.PINV_UPLOADS) == (builds + 1, uploads + 1)
+    for m, g in zip((mel, mel * 0.5), got):
+        want = torch.clamp_min(m @ torch.as_tensor(np.linalg.pinv(fb).T).to("cpu", dtype),
+                               1e-10)
+        assert g.dtype == dtype and torch.equal(g, want)
+
+
 def test_mel_vocoder_pipeline_matches_lws_tpu(golden_q4):
     """tests/test_mel.py's pipeline: 80-band mel -> linear -> 3-stage LWS
     (no-future 1, online 2, batch 10) -> waveform, a batch of two, in both

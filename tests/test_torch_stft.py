@@ -1,5 +1,7 @@
 """lws_torch.stft vs the reference goldens (tests/test_stft.py's
 tolerances) and vs lws_tpu.stft in float64 (1e-10), on the CPU."""
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -125,3 +127,54 @@ def test_long_inputs_take_the_blocked_paths():
     np.testing.assert_allclose(y.numpy(), x.numpy(), rtol=0, atol=1e-10)
     with pytest.raises(ValueError, match="non-negative"):
         lws_torch.istft_ri(sr[:, :4], sr[:, :4], 4, np.ones(8))
+
+
+def _hermitian_edges(fftsize, dtype, frames=12, seed=0):
+    """A (2, frames, F) spectrum pair whose DC and Nyquist bins carry
+    imaginary parts as large as the other bins'."""
+    g = torch.Generator().manual_seed(seed)
+    F = fftsize // 2 + 1
+    sr, si = (torch.randn(2, frames, F, generator=g, dtype=dtype) for _ in range(2))
+    assert si[..., 0].abs().min() > 0 and si[..., -1].abs().min() > 0
+    return sr, si
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("fftsize", [512, 1024, 2048, 4096])
+def test_istft_drops_edge_imaginary_parts_bit_neutrally_on_cpu(monkeypatch, fftsize, dtype):
+    """The iSTFT zeroes the imaginary parts of DC and Nyquist before the
+    irfft (cuFFT's float32 C2R would keep them); torch's CPU irfft already
+    drops them, so the CPU output is bit-equal to the irfft of the pair as
+    given, and the pair passed in is left as it is."""
+    tstft = importlib.import_module("lws_torch.stft")  # the package's `stft` is the function
+    proc = lws_torch.LWS(fftsize, fftsize // 4, device="cpu", dtype=dtype)
+    sr, si = _hermitian_edges(fftsize, dtype)
+    si0 = si.clone()
+    y = proc.istft((sr, si))
+    assert torch.equal(si, si0)
+    monkeypatch.setattr(tstft, "c2r_spectrum", torch.complex)
+    assert torch.equal(proc.istft((sr, si)), y)
+
+
+@pytest.mark.parametrize("fftsize", [512, 2048])
+def test_stream_synthesis_drops_edge_imaginary_parts_bit_neutrally_on_cpu(monkeypatch,
+                                                                          fftsize):
+    """The same in StreamingLWS's synthesis, with its online stage made the
+    identity so that the frames pushed (imaginary DC and Nyquist parts and
+    all) are the frames synthesised."""
+    import lws_torch.ops.online as online_mod
+    import lws_torch.streaming as tstream
+    monkeypatch.setattr(online_mod, "online_chunk",
+                        lambda fr, fi, state, *args: (fr, fi, state))
+    proc = lws_torch.LWS(fftsize, fftsize // 4, device="cpu")
+    sr, si = _hermitian_edges(fftsize, torch.float32)
+    frames = torch.complex(sr, si).transpose(0, 1)  # (N, S, F)
+
+    def run():
+        st = lws_torch.StreamingLWS(proc, streams=2, block_frames=4)
+        return np.concatenate([st.push_frames(frames), st.flush()], axis=-1)
+
+    y = run()
+    assert np.abs(y).max() > 0
+    monkeypatch.setattr(tstream, "c2r_spectrum", torch.complex)
+    np.testing.assert_array_equal(run(), y)
