@@ -69,9 +69,10 @@ Phases, in order:
      random phases, and a pure tone at precision "high" (TF32) against None;
   9. the vocoder path at full width: bench.py's vocoder row, a (1024, 223,
      80) mel through mel_vocoder_pipeline (mel_to_linear, 100 batch sweeps
-     on K1 at Q = 8, F = 1025, 1024 CTAs), with the launch count of that one
-     run, audio-s/s, every tiled copy of the 16 unique utterances equal to
-     its source bit for bit (all CTAs, all waves), the consistency of the
+     on K1's table kernel at Q = 8, F = 1025, 1024 CTAs), with the launch
+     count of that one run and its table-kernel launches, audio-s/s, every
+     tiled copy of the 16 unique utterances equal to its source bit for bit
+     (all CTAs, all waves), the consistency of the
      first 16, K1's time, bound, plan and blocks per SM (the CUDA runtime's
      occupancy query), and K1 against its plain version on 2 utterances;
  10. resumable: resumable_lws on the batch path's input in chunks of 25
@@ -350,11 +351,13 @@ def build_phase(s, sweeps_mod, online_mod):
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"    ptxas: {line.strip()}")
-    differ = [(F, Q, L) for F in (129, 257, 289, 513, 1025, 2049, 3073)
-              for Q, L in ((4, 5), (2, 5), (5, 5), (16, 5), (32, 3))
-              if sweeps_mod.kernel_plan(F, Q, L) != sweeps_mod.sweep_plan(F, Q, L)]
-    s.check(not differ, f"sweep kernel launch plan, built library vs Python mirror, 35 "
-            f"geometries: {'equal' if not differ else f'differ at {differ}'}")
+    cases = [(F, Q, L, P, G) for F in (129, 257, 289, 513, 1025, 1533, 1534, 2049, 3073)
+             for Q, L in ((4, 5), (2, 5), (5, 5), (8, 5), (16, 5), (32, 3))
+             for P, G in ((None, None), (Q, 148))]
+    differ = [c for c in cases if sweeps_mod.kernel_plan(*c) != sweeps_mod.sweep_plan(*c)]
+    s.check(not differ, f"sweep kernel launch plan, built library vs Python mirror, "
+            f"{len(cases)} geometries and stencils: "
+            f"{'equal' if not differ else f'differ at {differ}'}")
     cases = [(F, Q, L, LA, chunk, taps, P)
              for F in (129, 257, 513, 2049, 8193)
              for Q, L, LA in ((4, 5, 3), (8, 5, 3), (32, 3, 3), (4, 5, 10))
@@ -381,14 +384,16 @@ def build_phase(s, sweeps_mod, online_mod):
 
 
 def k1_template(plan, Q):
-    """The template arguments (KQ, KL, KNB, kRing, kAllStaged) of the
-    lws_sweeps_kernel the launch plan picks (csrc/lws_sweeps.cu
+    """The template arguments (KQ, KL, KNB, kRing, kAllStaged, kTable) of
+    the lws_sweeps_kernel the launch plan picks (csrc/lws_sweeps.cu
     pick_kernel)."""
+    if plan.table:
+        return (8, 5, plan.bins, 1, 0, 1)
     if plan.fixed:
-        return (Q, 5, plan.bins, 1, int(plan.bins == 1 and plan.staged == plan.taps))
+        return (Q, 5, plan.bins, 1, int(plan.bins == 1 and plan.staged == plan.taps), 0)
     if not plan.ring:
-        return (0, 0, 0, 0, 0)
-    return (0, 0, 1 if plan.bins == 1 else 0, 1, 0)
+        return (0, 0, 0, 0, 0, 0)
+    return (0, 0, 1 if plan.bins == 1 else 0, 1, 0, 0)
 
 
 def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes, waves=1,
@@ -402,7 +407,7 @@ def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes, waves=1,
     rounds of CTAs that follow from it: the per-step and per-frame times
     are then per wave, and `launch_us_per_frame` is the launch's time over
     one CTA's frames, undivided."""
-    plan = sweeps_mod.sweep_plan(F, st.Q, st.L)
+    plan = sweeps_mod.stencil_plan(F, st)
     args = k1_template(plan, st.Q)
     key = "lws_sweeps_kernelI" + "".join(
         f"L{'i' if i < 3 else 'b'}{v}E" for i, v in enumerate(args))
@@ -412,24 +417,27 @@ def k1_report(label, sweeps_mod, ptxas, st, F, ms, frames, passes, waves=1,
     us_launch = 1e3 * ms / frames
     us_step, us_frame = 1e3 * ms / (steps * waves), us_launch / waves
     # weights one CTA reads from device memory (L2) per frame: the rows of
-    # taps not staged, the centre row once per pass (8 bytes per tap and bin)
+    # taps not staged, the centre row once per pass (8 bytes per tap and
+    # bin); none with the table in shared memory
     K, rows = 2 * st.L + 1, plan.staged // (2 * st.L + 1)
     off_rows = 2 * st.Q - 2 - max(0, rows - 1)
-    w_bytes = 8 * F * K * (off_rows + (passes if rows == 0 and st.has_centre else 0))
+    w_bytes = 0 if plan.table else 8 * F * K * (
+        off_rows + (passes if rows == 0 and st.has_centre else 0))
     print(f"  K1 {label}: {ms:.2f} ms, {frames} frames x {steps // frames} steps per CTA"
           + (f", {waves} waves of CTAs ({blocks_per_sm} per SM by the runtime's occupancy "
              f"query; {us_launch:.3f} us per frame over the launch)" if waves > 1 else "")
           + f" -> "
           f"{us_step:.3f} us per step, {us_frame:.3f} us per frame; plan: {plan.threads} "
           f"threads x {plan.bins} bins, window ring in shared memory {plan.ring}, "
-          f"{plan.staged}/{plan.taps} tap planes staged, {plan.bytes} B; weights from device "
+          f"{plan.staged}/{plan.taps} tap planes staged, period-Q table {plan.table}, "
+          f"{plan.bytes} B; weights from device "
           f"memory {w_bytes} B per frame per CTA ({w_bytes / (1e3 * us_frame):.2f} GB/s "
           f"achieved); kernel lws_sweeps_kernel<{', '.join(map(str, args))}>: "
           f"{regs.get('registers')} registers, spill stores {regs.get('spill_stores')} B, "
           f"loads {regs.get('spill_loads')} B")
     return dict(us_per_step=us_step, us_per_frame=us_frame, launch_us_per_frame=us_launch,
                 frames_per_cta=frames, waves=waves, blocks_per_sm=blocks_per_sm, threads=plan.threads, bins_per_thread=plan.bins, ring=plan.ring,
-                taps_staged=plan.staged, taps=plan.taps, smem_bytes=plan.bytes,
+                taps_staged=plan.staged, taps=plan.taps, table=plan.table, smem_bytes=plan.bytes,
                 weight_bytes_per_frame=w_bytes, kernel=list(args),
                 registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
                 spill_loads=regs.get("spill_loads"))
@@ -1836,14 +1844,14 @@ def vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas):
 
     # one run of the vocoder path, through the user entry point, counted;
     # CUDA events around K1's wrapper where the processor calls it
-    sweeps_mod.LAUNCHES = 0
+    sweeps_mod.LAUNCHES = sweeps_mod.TABLE_LAUNCHES = 0
     with KernelTimer(torch, sys.modules["lws_torch.processor"], "tiled_lws_sweeps") as kt:
         s.sync()
         t0 = time.perf_counter()
         out = lws_torch.mel_vocoder_pipeline(mel, proc, fb=fb, return_spec=True)
         s.sync()
         wall = time.perf_counter() - t0
-    launched = sweeps_mod.LAUNCHES
+    launched, tables = sweeps_mod.LAUNCHES, sweeps_mod.TABLE_LAUNCHES
     ms = kt.ms()
     F = int(out[0].shape[-1])
     print(f"vocoder path: LWS({VOC_FSIZE}, {VOC_FSHIFT}) (Q = {proc._Qi}, F = {F}), mel "
@@ -1852,6 +1860,8 @@ def vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas):
           f"{proc.batch_iterations} batch sweeps, batch_inner_passes={proc.batch_inner_passes}")
     s.check(launched == 1 and len(kt.events) == 1,
             f"lws_sweeps kernel launches in the vocoder run: {launched}")
+    s.check(tables == 1, f"of them, table kernel launches (TABLE_LAUNCHES: weights from the "
+            f"period-Q table): {tables}")
     lin = lws_torch.mel_to_linear(mel, fb).to(proc.rdtype)
     mag_rel = float(((torch.sqrt(out[0] ** 2 + out[1] ** 2) - lin).abs()
                      / lin.clamp_min(1e-30)).max())
@@ -1886,7 +1896,7 @@ def vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas):
     bound_ms, bound_by, flops, nbytes, serial = sweep_bound(st, ip, live, T, F, B)
     # blocks resident per SM: the CUDA runtime's occupancy query of the
     # kernel this launch picked, at its threads and dynamic shared memory
-    per_sm = sweeps_mod.kernel_occupancy(F, st.Q, st.L)
+    per_sm = sweeps_mod.kernel_occupancy(F, st.Q, st.L, st.period, int(st.nz.sum()))
     waves = -(-B // (max(1, per_sm) * proc._n_sm))
     s.check(per_sm >= 1, f"K1 at Q = {st.Q}, F = {F}: {per_sm} blocks per SM by "
             f"cudaOccupancyMaxActiveBlocksPerMultiprocessor")
@@ -1917,7 +1927,8 @@ def vocoder_path(s, torch, lws_torch, sweeps_mod, ptxas):
             f"vocoder case: K1 vs plain at Q = 8, F = 1025, {tuple(r0.shape)}, 3 live "
             f"sweeps from random phases: max|d|/max amp = {rel:.3e} (tol {TOL_CASE:g}); "
             f"kernel {case_ms:.2f} ms, plain {plain_ms:.1f} ms")
-    return dict(launches=launched, ms=ms, bound_ms=bound_ms, bound_by=bound_by,
+    return dict(launches=launched, table_launches=tables, ms=ms, bound_ms=bound_ms,
+                bound_by=bound_by,
                 shape=[B, int(T), F], mel_shape=list(mel.shape), sweeps=proc.batch_iterations,
                 serial_steps=serial, plan=plan, wall_ms=1e3 * wall, audio_s_per_s=secs / wall,
                 consistency_db=c16, consistency_in_db=c0,

@@ -49,16 +49,28 @@
 //     most 768 threads: a row's tap loop unrolls, so all of a bin's row
 //     loads issue before its multiply-adds (rows run one at a time:
 //     unrolling them too spills), and with every row of weights staged
-//     (F = 257) the kernel holds no device-memory weight path. Any other
-//     (Q, L) or thread count takes the run-time path: the same steps with
-//     run-time loops, and no cap on Q. Where the ring does not fit
-//     (F > ~2,900 at Q = 4) the run-time path reads the window from device
-//     memory with the same arithmetic.
+//     (F = 257) the kernel holds no device-memory weight path. And for
+//     (8, 5) with weights of period Q at 1-2 bins per thread on at most
+//     768 threads (the table kernel, kTable: LWS(2048, 256), the mel
+//     vocoder's F = 1025). Any other (Q, L), period or thread count takes
+//     the run-time path: the same steps with run-time loops, and no cap on
+//     Q. Where the ring does not fit (F > ~2,900 at Q = 4, F > 1,604 at
+//     Q = 8) the run-time path reads the window from device memory with
+//     the same arithmetic.
 //   - Weights: the rows of taps that fit beside the ring are staged in
 //     shared memory, the centre row first (the passes read it `passes`
 //     times), then the off-centre rows in dr order; the other rows are
 //     read through the read-only path, so each row's loads are of one kind.
-//     F = 257: all 7 rows; F = 513: 4; F = 2049: none.
+//     F = 257: all 7 rows; F = 513: 4; F = 2049: none. The table kernel
+//     stages instead the stencil's period-Q table (K5's, below: its live
+//     taps by Q columns, 148 x 8 float2 = 9,472 B at Q = 8, against 165
+//     planes of 8,200 B at F = 1025, none of which fits beside the ring)
+//     and its tap lists after the ring. A thread's bins share their column
+//     (threads is a multiple of 32), so each weight is read once for its
+//     bins; a full row of taps runs in two halves (the whole row's weights
+//     and values spill at 2 bins), a partial one walks its live taps, and
+//     dead taps (the no-future stencil's first row, the centre row's 9 of
+//     11) are not summed.
 //   - Each bin's arithmetic is the previous K1's, operation for operation:
 //     the off-centre sum in (dr, dk) order, the centre sum in dk order,
 //     phase_update. With -fmad=false the result is the same bit for bit
@@ -69,15 +81,20 @@
 //
 // Bound on this card: still the serial frame chain, not bytes or FLOPs:
 // T x live sweeps x (1 + passes) barrier steps per CTA on B CTAs (32 on the
-// batch path; S = 8 on the longform path). Inside a step, the ring takes
-// device-memory latency off the taps; what is left is shared-memory
-// traffic (F = 257) and, where the weights do not fit, the weights through
-// L2: (2Q-2 + passes)(2L+1) tap planes of 8F bytes per frame, 1.62 MB at
-// F = 2049 into one SM, beside the 3 x 33 shared-memory reads per bin and
-// frame, all through the SM's one load/store pipe (PERF.md has the
-// measured times). Only splitting F across a thread-block cluster (a
+// batch path; S = 8 on the longform path; 128 on the vocoder cell). Inside
+// a step, the ring takes device-memory latency off the taps; what is left
+// is shared-memory traffic (F = 257; the table kernel) and, where the
+// weights do not fit, the weights through L2: (2Q-2 + passes)(2L+1) tap
+// planes of 8F bytes per frame, 1.62 MB at F = 2049 into one SM (1.35 MB
+// at Q = 8, F = 1025, before the table kernel), beside the 3 x 33
+// shared-memory reads per bin and frame, all through the SM's one
+// load/store pipe (PERF.md has the measured times). The table kernel takes
+// the L2 reads and the run-time loops off Q = 8: per frame a thread issues
+// 2 x 148 value and 148 weight reads from shared memory, with 17 warps per
+// SM to hide them. Only splitting F across a thread-block cluster (a
 // weight slice per CTA in shared memory, the +-L halo bins through
-// distributed shared memory) removes that floor; that is the next change.
+// distributed shared memory) removes the chain's floor; that is the next
+// change.
 //
 // Built with -fmad=false so each product and sum rounds as in the plain
 // PyTorch version (lws_torch/core/stencil.py). read_bin and the epilogue
@@ -166,12 +183,15 @@ struct SweepPlan {
   int staged;      // tap planes staged in shared memory: whole rows, centre row first
   int taps;        // (2Q - 1)(2L + 1)
   int fixed;       // 1: a compile-time (Q, L, bins) kernel runs
+  int table;       // 1: (fixed) the weights come from the period-Q table in shared memory
   long long bytes; // dynamic shared memory
 };
 
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-SweepPlan sweep_plan(int F, int Q, int L) {
+// The plan for F bins, (Q, L) and a stencil of G live taps whose weights
+// repeat with period P in the bin index (P = F: they do not).
+SweepPlan sweep_plan(int F, int Q, int L, int G, int P) {
   SweepPlan p;
   p.bins = (F + kMaxThreads - 1) / kMaxThreads;
   p.threads = ((F + p.bins - 1) / p.bins + 31) / 32 * 32;
@@ -183,6 +203,18 @@ SweepPlan sweep_plan(int F, int Q, int L) {
   const long long used = pingpong + (p.ring ? ring : 0);
   const int K = 2 * L + 1;
   p.taps = (2 * Q - 1) * K;
+  // the (8, 5) table kernel: the table (G x P float2) and the tap lists
+  // beside the ring; three bins (F > 2048) never leave room for the ring
+  const long long table = (long long)sizeof(float2) * G * P +
+                          (long long)sizeof(int) * (3LL * (2 * Q - 1) + G);
+  p.table = p.ring && Q == 8 && L == 5 && P == Q && p.bins <= 2 &&
+            p.threads <= kFixedThreads && used + table <= kSmemLimit;
+  if (p.table) {
+    p.staged = 0;
+    p.fixed = 1;
+    p.bytes = used + table;
+    return p;
+  }
   const long long tap_row = 2LL * K * F * (long long)sizeof(float);  // a row's K planes
   const long long room = kSmemLimit - used;
   const long long rows = room > 0 ? room / tap_row : 0;
@@ -197,12 +229,16 @@ struct SweepArgs {
   float* xr;  // the padded state: written, so not read-only
   float* xi;
   const float* amp;
-  const float* wr;
+  const float* wr;  // the tap planes (null for the table kernel)
   const float* wi;
   const float* thr;
   const int* live;
   int T, F, Q, L, iters, n_pass, color_k;
   int bins, width, staged;
+  const float2* table;  // the table kernel's (G, Q) weight table and tap lists, as K5's
+  const int* rows;
+  const int* dks;
+  int G;
 };
 
 // ---------------------------------------------------------------------------
@@ -290,16 +326,65 @@ __device__ __forceinline__ void row_taps(const float* rr, const float* ri,
   }
 }
 
+// One row's live taps for this thread's bins from the period-KP weight
+// table (the table kernel): the row's taps are table entries first ..
+// first + count - 1, in dk order, and every bin of the thread reads column
+// col (its bins n, n + threads, ... share n mod KP: threads is a multiple of
+// 32). A full row (KK live taps) runs in two halves: a half's weights are
+// loaded once, then each bin's values of that half, then their sums (the
+// whole row at once holds 22 weight and 44 value registers at 2 bins, past
+// the 80 of the 768-thread bound, and spills); a partial row walks its live
+// taps. Each bin sums its taps in dk order, and a dead tap would add +-0 to
+// a sum that is never -0, so the sums are K1's bit for bit.
+template <int KK, int KP, int KB>
+__device__ __forceinline__ void table_row(const float* rr, const float* ri,
+                                          const float2* table, const int* dks, int col,
+                                          int first, int count, const int (&nw)[KB],
+                                          float (&acc_r)[KB], float (&acc_i)[KB]) {
+  if (count == KK) {
+    constexpr int KH = (KK + 1) / 2;
+#pragma unroll
+    for (int h = 0; h < KK; h += KH) {
+      float2 wt[KH];
+#pragma unroll
+      for (int d = 0; d < KH; ++d)
+        if (h + d < KK) wt[d] = table[(first + h + d) * KP + col];
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        float2 v[KH];
+#pragma unroll
+        for (int d = 0; d < KH; ++d)
+          if (h + d < KK) v[d] = float2{rr[nw[j] + h + d], ri[nw[j] + h + d]};
+#pragma unroll
+        for (int d = 0; d < KH; ++d)
+          if (h + d < KK) cmac(acc_r[j], acc_i[j], wt[d], v[d]);
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int g = first; g < first + count; ++g) {
+      const int dk = dks[g];
+      const float2 w = table[g * KP + col];
+#pragma unroll
+      for (int j = 0; j < KB; ++j)
+        cmac(acc_r[j], acc_i[j], w, float2{rr[nw[j] + dk], ri[nw[j] + dk]});
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // K1: the kernel. KQ, KL, KNB > 0 fix Q, L and the bins per thread at
 // compile time; 0 takes them from the arguments. kRing: the window in
 // shared memory (else in device memory, run-time path only). kAllStaged:
 // every row of taps is in shared memory, and the kernel holds no path that
-// reads weights from device memory.
-template <int KQ, int KL, int KNB, bool kRing, bool kAllStaged>
+// reads weights from device memory. kTable: the weights come from the
+// period-KQ table (its live taps only) staged in shared memory after the
+// ring, in place of the tap planes.
+template <int KQ, int KL, int KNB, bool kRing, bool kAllStaged, bool kTable = false>
 __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
     lws_sweeps_kernel(SweepArgs a) {
   static_assert(KQ == 0 || (kRing && KNB > 0), "the fixed kernels keep the ring");
+  static_assert(!kTable || (KQ > 0 && !kAllStaged), "the table kernel is a fixed one");
   extern __shared__ float smem[];
   constexpr int kBins = KNB > 0 ? KNB : kMaxBins;
   constexpr int kK = KQ > 0 ? 2 * KL + 1 : 0;
@@ -324,7 +409,8 @@ __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
   const float* __restrict__ g_wi = a.wi;
   const int staged_rows = a.staged / K;  // the centre row first, then dr = 0, 1, ...
 
-  // shared memory: two ping-pong centre rows, the ring, the staged rows of taps
+  // shared memory: two ping-pong centre rows, the ring, then the staged
+  // rows of taps, or (kTable) the weight table and its tap lists
   float* pp = smem;            // buffer k, plane c at pp + (2k + c) W
   float* ring = smem + 4 * W;  // slot s, plane c at ring + (2s + c) W
   float* s_wr = ring + (kRing ? 2 * S * W : 0);
@@ -336,6 +422,15 @@ __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
     s_wr[i] = __ldg(g_wr + at);
     s_wi[i] = __ldg(g_wi + at);
   }
+  float2* s_table = reinterpret_cast<float2*>(s_wr);
+  int* s_rows = reinterpret_cast<int*>(s_table + a.G * KQ);  // per row: mask, first, count
+  int* s_dks = s_rows + 3 * R;
+  if constexpr (kTable) {
+    for (int i = tid; i < a.G * KQ; i += nth) s_table[i] = __ldg(a.table + i);
+    for (int i = tid; i < 3 * R; i += nth) s_rows[i] = __ldg(a.rows + i);
+    for (int i = tid; i < a.G; i += nth) s_dks[i] = __ldg(a.dks + i);
+  }
+  const int col = tid % (KQ > 0 ? KQ : 1);  // the table column of all this thread's bins
 
   // this thread's bins tid, tid + nth, ... (those < F are its own); reads
   // and weights use the bin clamped to F - 1, so threads past F read inside
@@ -366,7 +461,7 @@ __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
                     Xi[(size_t)r * F + nw[j]]);
       }
     }
-    __syncthreads();  // the window and the staged taps are complete
+    __syncthreads();  // the window and the staged taps (or the table) are complete
 
     int base = 0;  // ring slot of padded row m
     for (int m = 0; m < T; ++m) {
@@ -380,13 +475,16 @@ __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
       }
 #pragma unroll 1
       for (int dr = 0; dr < R; ++dr) {
-        if (dr == Q1) continue;
+        if (dr == Q1 || (kTable && s_rows[3 * dr + 2] == 0)) continue;
         int slot = base + dr;
         slot = slot >= S ? slot - S : slot;
         const float* rr = kRing ? ring + 2 * slot * W : Xr + (size_t)(m + dr) * F;
         const float* ri = kRing ? rr + W : Xi + (size_t)(m + dr) * F;
         const int rank = 1 + (dr < Q1 ? dr : dr - 1);  // the row's staging rank
-        if (kAllStaged || rank < staged_rows) {
+        if constexpr (kTable) {
+          table_row<kK, KQ>(rr, ri, s_table, s_dks, col, s_rows[3 * dr + 1],
+                            s_rows[3 * dr + 2], nw, tr, ti);
+        } else if (kAllStaged || rank < staged_rows) {
           const size_t at = (size_t)rank * K * F;
           row_taps<kK, kBins, kRing, true>(rr, ri, s_wr + at, s_wi + at, nw, NB, K, L, F,
                                            tr, ti);
@@ -463,7 +561,10 @@ __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
           cr[j] = 0.f;
           ci[j] = 0.f;
         }
-        if (kAllStaged || cen_staged) {
+        if constexpr (kTable) {
+          table_row<kK, KQ>(src_r, src_i, s_table, s_dks, col, s_rows[3 * Q1 + 1],
+                            s_rows[3 * Q1 + 2], nw, cr, ci);
+        } else if (kAllStaged || cen_staged) {
           row_taps<kK, kBins, true, true>(src_r, src_i, s_wr, s_wi, nw, NB, K, L, F, cr, ci);
         } else {
           const size_t at = (size_t)Q1 * K * F;
@@ -499,10 +600,10 @@ __global__ void __launch_bounds__(KQ > 0 ? kFixedThreads : kMaxThreads, 1)
 
 typedef void (*SweepKernel)(SweepArgs);
 
-// The kernel sweep_plan picks: a fixed one for (Q, L) = (4, 5) or (2, 5) at
-// 1-3 bins per thread on at most kFixedThreads threads with the ring (at 1
-// bin with every row staged, the one without device-memory weights), else
-// the run-time one.
+// The kernel sweep_plan picks: the table kernel at (8, 5) and 1-2 bins per
+// thread; a fixed one for (Q, L) = (4, 5) or (2, 5) at 1-3 bins per thread
+// on at most kFixedThreads threads with the ring (at 1 bin with every row
+// staged, the one without device-memory weights); else the run-time one.
 template <int KQ>
 SweepKernel fixed_kernel(const SweepPlan& p) {
   if (p.bins == 1) {
@@ -514,6 +615,9 @@ SweepKernel fixed_kernel(const SweepPlan& p) {
 }
 
 SweepKernel pick_kernel(const SweepPlan& p, int Q) {
+  if (p.table)
+    return p.bins == 1 ? lws_sweeps_kernel<8, 5, 1, true, false, true>
+                       : lws_sweeps_kernel<8, 5, 2, true, false, true>;
   if (p.fixed) return Q == 4 ? fixed_kernel<4>(p) : fixed_kernel<2>(p);
   if (!p.ring) return lws_sweeps_kernel<0, 0, 0, false, false>;
   if (p.bins == 1) return lws_sweeps_kernel<0, 0, 1, true, false>;
@@ -1050,27 +1154,37 @@ PackedKernel pick_packed(const PackedPlan& p) {
 
 extern "C" {
 
-// Runs `iters` sweeps over the padded state (xr, xi) in place on `stream`.
-// Returns the cudaError_t of the launch (0 on success); a shared-memory
-// plan that does not fit one block is cudaErrorInvalidValue.
+// Runs `iters` sweeps over the padded state (xr, xi) in place on `stream`,
+// for a stencil of G live taps whose weights repeat with period P in the bin
+// index (P = F: they do not). The weights: the tap planes (wr, wi), or,
+// where the plan picks the table kernel, the (G, P) weight table with its
+// tap lists (rows (2Q-1, 3), dks (G)); the other may be null. Returns the
+// cudaError_t of the launch (0 on success); a shared-memory plan that does
+// not fit one block, or missing weights, is cudaErrorInvalidValue.
 int lws_sweeps_launch(void* xr, void* xi, const void* amp, const void* wr,
-                      const void* wi, const void* thr, const void* live,
-                      int B, int T, int F, int Q, int L, int iters,
-                      int passes, int color_k, int color_rounds,
-                      int has_centre, void* stream) {
+                      const void* wi, const void* table, const void* rows, const void* dks,
+                      const void* thr, const void* live, int B, int T, int F, int Q, int L,
+                      int iters, int passes, int color_k, int color_rounds, int has_centre,
+                      int G, int P, void* stream) {
   if (B < 1 || T < 1 || Q < 1 || L < 0 || F < L + 1 || iters < 0 || passes < 1 ||
-      color_k < 0 || color_rounds < 1) {
+      color_k < 0 || color_rounds < 1 || G < 0 || P < 1 || P > F) {
     return (int)cudaErrorInvalidValue;
   }
   if (iters == 0) return (int)cudaSuccess;
-  const SweepPlan p = sweep_plan(F, Q, L);
-  if (p.bytes > kSmemLimit || p.bins > kMaxBins) return (int)cudaErrorInvalidValue;
+  const SweepPlan p = sweep_plan(F, Q, L, G, P);
+  if (p.bytes > kSmemLimit || p.bins > kMaxBins ||
+      (p.table ? !table || !rows || !dks : !wr || !wi)) {
+    return (int)cudaErrorInvalidValue;
+  }
   SweepArgs a;
   a.xr = (float*)xr;
   a.xi = (float*)xi;
   a.amp = (const float*)amp;
   a.wr = (const float*)wr;
   a.wi = (const float*)wi;
+  a.table = (const float2*)table;
+  a.rows = (const int*)rows;
+  a.dks = (const int*)dks;
   a.thr = (const float*)thr;
   a.live = (const int*)live;
   a.T = T;
@@ -1083,6 +1197,7 @@ int lws_sweeps_launch(void* xr, void* xi, const void* amp, const void* wr,
   a.bins = p.bins;
   a.width = p.width;
   a.staged = p.staged;
+  a.G = G;
   const SweepKernel kernel = pick_kernel(p, Q);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.bytes);
@@ -1091,29 +1206,29 @@ int lws_sweeps_launch(void* xr, void* xi, const void* amp, const void* wr,
   return (int)cudaGetLastError();
 }
 
-// K1's launch plan for (F, Q, L) into out[0..7]: bins per thread, threads,
-// row width, ring (0/1), staged tap planes, taps, fixed kernel (0/1),
-// shared-memory bytes. Returns 0 when it fits one block, else
-// cudaErrorInvalidValue.
-int lws_sweeps_plan(int F, int Q, int L, long long* out) {
-  if (F < 1 || Q < 1 || L < 0) return (int)cudaErrorInvalidValue;
-  const SweepPlan p = sweep_plan(F, Q, L);
-  const long long v[8] = {p.bins, p.threads, p.width, p.ring,
-                          p.staged, p.taps, p.fixed, p.bytes};
-  for (int i = 0; i < 8; ++i) out[i] = v[i];
+// K1's launch plan for (F, Q, L) and a stencil of G live taps of period P
+// into out[0..8]: bins per thread, threads, row width, ring (0/1), staged
+// tap planes, taps, fixed kernel (0/1), table kernel (0/1), shared-memory
+// bytes. Returns 0 when it fits one block, else cudaErrorInvalidValue.
+int lws_sweeps_plan(int F, int Q, int L, int G, int P, long long* out) {
+  if (F < 1 || Q < 1 || L < 0 || G < 0 || P < 1) return (int)cudaErrorInvalidValue;
+  const SweepPlan p = sweep_plan(F, Q, L, G, P);
+  const long long v[9] = {p.bins, p.threads, p.width, p.ring,  p.staged,
+                          p.taps, p.fixed,   p.table, p.bytes};
+  for (int i = 0; i < 9; ++i) out[i] = v[i];
   return p.bytes <= kSmemLimit && p.bins <= kMaxBins ? (int)cudaSuccess
                                                      : (int)cudaErrorInvalidValue;
 }
 
-// Blocks of the kernel lws_sweeps_launch runs for (F, Q, L) that one SM of
-// the current device holds at once, as the CUDA runtime counts them (its
-// registers, its dynamic shared memory, its threads) into *blocks. Returns
-// the cudaError_t of the query; a plan that does not fit one block is
-// cudaErrorInvalidValue.
-int lws_sweeps_occupancy(int F, int Q, int L, int* blocks) {
+// Blocks of the kernel lws_sweeps_launch runs for (F, Q, L, G, P) that one
+// SM of the current device holds at once, as the CUDA runtime counts them
+// (its registers, its dynamic shared memory, its threads) into *blocks.
+// Returns the cudaError_t of the query; a plan that does not fit one block
+// is cudaErrorInvalidValue.
+int lws_sweeps_occupancy(int F, int Q, int L, int G, int P, int* blocks) {
   *blocks = 0;
-  if (F < 1 || Q < 1 || L < 0) return (int)cudaErrorInvalidValue;
-  const SweepPlan p = sweep_plan(F, Q, L);
+  if (F < 1 || Q < 1 || L < 0 || G < 0 || P < 1) return (int)cudaErrorInvalidValue;
+  const SweepPlan p = sweep_plan(F, Q, L, G, P);
   if (p.bytes > kSmemLimit || p.bins > kMaxBins) return (int)cudaErrorInvalidValue;
   const SweepKernel kernel = pick_kernel(p, Q);
   cudaError_t err =

@@ -20,9 +20,13 @@ micro = 1 the wrapper
   - launches the kernel once for all sweeps and counts the launch.
 
 `sweep_plan` mirrors the kernel's launch plan (bins per thread, threads,
-the shared-memory window ring, the tap planes staged in shared memory,
-bytes; csrc/lws_sweeps.cu::sweep_plan): any Q and L whose plan fits one
-block run. CPU tensors, and backend="torch", take the plain version
+the shared-memory window ring, the tap planes staged in shared memory or
+the period-Q weight table, bytes; csrc/lws_sweeps.cu::sweep_plan): any Q
+and L whose plan fits one block run. Where the plan picks the table kernel
+((Q, L) = (8, 5), weights of period Q, 1-2 bins per thread), the launch
+passes the stencil's weight table (ops/packed.py::packed_weights, cached
+with the stencil) in place of the tap planes, and counts it in
+TABLE_LAUNCHES too. CPU tensors, and backend="torch", take the plain version
 (lws_torch.core.batch.lws_sweeps). A CUDA tensor the kernel does not take
 (float64, a plan past 227 KB of shared memory) raises; nothing falls back.
 The kernels have no backward (lws_tpu's Pallas kernels have no custom_vjp
@@ -42,7 +46,7 @@ from ..core.stencil import Stencil, _parse_colors
 from . import _build
 
 __all__ = ["tiled_lws_sweeps", "sweep_schedule", "sweep_plan", "SweepPlan", "MAX_Q",
-           "LAUNCHES"]
+           "LAUNCHES", "TABLE_LAUNCHES"]
 
 # Largest overlap factor of the online kernels and the grouped sweep kernel
 # K5 (the JAX kernels' MAX_Q); K1 takes any Q its shared-memory plan fits.
@@ -56,6 +60,8 @@ _FIXED_THREADS = 768  # the compile-time kernels' launch bound
 
 # Kernel launches so far; the main path's run is read as a difference.
 LAUNCHES = 0
+# Of those, the launches of the table kernel (weights from the period-Q table).
+TABLE_LAUNCHES = 0
 
 _LIB = "lws_sweeps"
 
@@ -69,7 +75,9 @@ class SweepPlan(NamedTuple):
     staged: int    # tap planes staged in shared memory: whole rows, centre row first
     taps: int      # (2Q - 1)(2L + 1)
     fixed: bool    # a compile-time kernel: (Q, L) in {(4, 5), (2, 5)}, 1-3 bins on
-                   # at most 768 threads, ring
+                   # at most 768 threads, ring; or the table kernel
+    table: bool    # the table kernel: (Q, L) = (8, 5), period Q, 1-2 bins on at most
+                   # 768 threads, the weight table and tap lists beside the ring
     bytes: int     # dynamic shared memory per block
 
     @property
@@ -81,14 +89,28 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def sweep_plan(F: int, Q: int, L: int) -> SweepPlan:
+def _taps_period(F: int, Q: int, L: int, period, taps) -> tuple[int, int]:
+    """(G, P): `taps` live taps (default every tap) and `period` (default F)."""
+    return ((2 * Q - 1) * (2 * L + 1) if taps is None else int(taps),
+            F if period is None else int(period))
+
+
+def sweep_plan(F: int, Q: int, L: int, period: int | None = None,
+               taps: int | None = None) -> SweepPlan:
     """K1's launch plan (csrc/lws_sweeps.cu::sweep_plan, exported as
-    lws_sweeps_plan): bins = ceil(F / 1024) strided bins per thread on
-    round_up(ceil(F / bins), 32) threads; two ping-pong centre rows and,
-    when it fits beside them, the 2Q-row ring of the window, each row
-    (re, im) of `width` floats; then as many rows of taps (2L + 1 (re, im)
-    planes of F floats) as the rest of the 227 KB holds."""
+    lws_sweeps_plan) for a stencil of `taps` live taps (default all) whose
+    weights repeat with `period` in the bin index (default F: they do not):
+    bins = ceil(F / 1024) strided bins per thread on round_up(ceil(F /
+    bins), 32) threads; two ping-pong centre rows and, when it fits beside
+    them, the 2Q-row ring of the window, each row (re, im) of `width`
+    floats. At (Q, L) = (8, 5) with period Q, 1-2 bins on at most 768
+    threads and the ring, the table kernel: the weight table (8 bytes per
+    live tap and column) and its tap lists (4 bytes per row field and live
+    tap) beside the ring, where they fit. Otherwise as many rows of taps
+    (2L + 1 (re, im) planes of F floats) as the rest of the 227 KB holds."""
     F, Q, L = int(F), int(Q), int(L)
+    K = 2 * L + 1
+    G, P = _taps_period(F, Q, L, period, taps)
     bins = _ceil_div(F, _MAX_THREADS)
     threads = _ceil_div(_ceil_div(F, bins), 32) * 32
     width = F + 2 * L
@@ -96,24 +118,33 @@ def sweep_plan(F: int, Q: int, L: int) -> SweepPlan:
     pingpong, ring_b = 2 * row, 2 * Q * row
     ring = pingpong + ring_b <= SMEM_LIMIT
     used = pingpong + (ring_b if ring else 0)
-    K = 2 * L + 1
+    table_b = 8 * G * P + 4 * (3 * (2 * Q - 1) + G)
+    if (ring and (Q, L) == (8, 5) and P == Q and bins <= 2 and threads <= _FIXED_THREADS
+            and used + table_b <= SMEM_LIMIT):
+        return SweepPlan(bins, threads, width, ring, 0, (2 * Q - 1) * K, True, True,
+                         used + table_b)
     tap_plane = 2 * F * 4
     rows = max(0, SMEM_LIMIT - used) // (K * tap_plane)
     staged = min(2 * Q - 1, rows) * K
     fixed = ring and L == 5 and Q in (4, 2) and bins <= 3 and threads <= _FIXED_THREADS
-    return SweepPlan(bins, threads, width, ring, staged, (2 * Q - 1) * K, fixed,
+    return SweepPlan(bins, threads, width, ring, staged, (2 * Q - 1) * K, fixed, False,
                      used + staged * tap_plane)
+
+
+def stencil_plan(F: int, st: Stencil) -> SweepPlan:
+    """sweep_plan for the stencil `st` on F bins: its period and live taps."""
+    return sweep_plan(F, st.Q, st.L, st.period, int(st.nz.sum()))
 
 
 def _library():
     lib = _build.load(_LIB)
     if lib.lws_sweeps_launch.argtypes is None:
         lib.lws_sweeps_launch.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.lws_sweeps_launch.restype = ctypes.c_int
-        lib.lws_sweeps_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lws_sweeps_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.lws_sweeps_plan.restype = ctypes.c_int
-        lib.lws_sweeps_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.lws_sweeps_occupancy.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.lws_sweeps_occupancy.restype = ctypes.c_int
         lib.lws_packed_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
@@ -227,37 +258,51 @@ def tiled_lws_sweeps(
 
 
 def _launch(sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean_amp):
-    global LAUNCHES
-    plan = sweep_plan(sr.shape[-1], st.Q, st.L)
+    global LAUNCHES, TABLE_LAUNCHES
+    F = sr.shape[-1]
+    plan = stencil_plan(F, st)
     if not plan.fits:
         raise ValueError(
             f"lws_torch: the sweep kernel's shared-memory plan does not fit one block at "
-            f"F={sr.shape[-1]}, Q={st.Q}, L={st.L} ({plan.bytes} B against {SMEM_LIMIT}); "
+            f"F={F}, Q={st.Q}, L={st.L} ({plan.bytes} B against {SMEM_LIMIT}); "
             "use backend='torch' for the plain version")
+    if plan.table:
+        from .packed import packed_weights  # packed imports this module
+        wt = packed_weights(st)
+        weights = (None, None, wt.table, wt.rows, wt.dks)
+    else:
+        weights = (st.Wr, st.Wi, None, None, None)
     out, launched = launch_padded(
-        "lws_sweeps_launch", sr, si, st, thresholds, halo, mean_amp, (st.Wr, st.Wi),
-        _schedule_args(st, inner_passes, inner_scheme))
+        "lws_sweeps_launch", sr, si, st, thresholds, halo, mean_amp, weights,
+        (*_schedule_args(st, inner_passes, inner_scheme), int(st.nz.sum()), st.period))
     LAUNCHES += launched
+    TABLE_LAUNCHES += int(launched and plan.table)
     return out
 
 
-def kernel_plan(F: int, Q: int, L: int) -> SweepPlan:
+def kernel_plan(F: int, Q: int, L: int, period: int | None = None,
+                taps: int | None = None) -> SweepPlan:
     """The plan the built kernel computes (lws_sweeps_plan), to hold the
-    mirror to; builds csrc/lws_sweeps.cu on first use."""
-    out = (ctypes.c_longlong * 8)()
-    _library().lws_sweeps_plan(int(F), int(Q), int(L), ctypes.addressof(out))
+    mirror to (sweep_plan's arguments); builds csrc/lws_sweeps.cu on first
+    use."""
+    G, P = _taps_period(F, Q, L, period, taps)
+    out = (ctypes.c_longlong * 9)()
+    _library().lws_sweeps_plan(int(F), int(Q), int(L), G, P, ctypes.addressof(out))
     v = list(out)
-    return SweepPlan(v[0], v[1], v[2], bool(v[3]), v[4], v[5], bool(v[6]), v[7])
+    return SweepPlan(*v[:3], bool(v[3]), v[4], v[5], bool(v[6]), bool(v[7]), v[8])
 
 
-def kernel_occupancy(F: int, Q: int, L: int) -> int:
-    """Blocks of the kernel K1 launches for (F, Q, L) that one SM of the
+def kernel_occupancy(F: int, Q: int, L: int, period: int | None = None,
+                     taps: int | None = None) -> int:
+    """Blocks of the kernel K1 launches for (F, Q, L) and a stencil of
+    `taps` live taps of `period` (sweep_plan's arguments) that one SM of the
     current CUDA device holds at once, as the CUDA runtime's occupancy
     query counts them (lws_sweeps_occupancy); builds csrc/lws_sweeps.cu on
     first use."""
+    G, P = _taps_period(F, Q, L, period, taps)
     lib = _library()
     blocks = ctypes.c_int(0)
-    err = lib.lws_sweeps_occupancy(int(F), int(Q), int(L), ctypes.byref(blocks))
+    err = lib.lws_sweeps_occupancy(int(F), int(Q), int(L), G, P, ctypes.byref(blocks))
     if err != 0:
         msg = lib.lws_sweeps_error_string(err).decode()
         raise RuntimeError(f"lws_torch: lws_sweeps_occupancy failed: {msg} ({err})")
@@ -268,7 +313,8 @@ def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, weights, schedu
                   scratch=None):
     """Check the inputs, build the padded state and the schedule, and run
     csrc/lws_sweeps.cu's `entry` (lws_sweeps_launch or lws_packed_launch)
-    once with the pointers of `weights` after amp (K1: st.Wr, st.Wi; K5:
+    once with the pointers of `weights` after amp (K1: st.Wr, st.Wi and the
+    weight table and tap lists, None for those its plan does not read; K5:
     its weight table and tap lists) and `schedule` (its int arguments after
     `iters`). `scratch`, for K5: the float2 each CTA keeps in device memory
     (its plan's), allocated here and passed after the thresholds' live
@@ -314,7 +360,7 @@ def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, weights, schedu
         else:
             x[:, :Q1] = halo[h_top].reshape(B, Q1, F)
             x[:, Q1 + T:] = halo[h_bot].reshape(B, Q1, F)
-    weights = [w.contiguous() for w in weights]
+    weights = [None if w is None else w.contiguous() for w in weights]
     thr = thr.contiguous()
     live = live.contiguous()
     extra = []
@@ -326,7 +372,8 @@ def launch_padded(entry, sr, si, st, thresholds, halo, mean_amp, weights, schedu
     lib = _library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = getattr(lib, entry)(
-        xr.data_ptr(), xi.data_ptr(), amp.data_ptr(), *(w.data_ptr() for w in weights),
+        xr.data_ptr(), xi.data_ptr(), amp.data_ptr(),
+        *(None if w is None else w.data_ptr() for w in weights),
         thr.data_ptr(), live.data_ptr(), *extra, B, T, F, Q, L, iters, *schedule, stream)
     if err != 0:
         msg = lib.lws_sweeps_error_string(err).decode()

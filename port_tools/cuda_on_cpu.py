@@ -21,9 +21,13 @@ one bin per thread, the window read from device memory), built the same
 way, on the cases of k1_cases(): Q = 4 ip3 jacobi, the no-future stencil,
 Q = 2 color2x3, halo= / mean_amp=, an F that is not a multiple of 32, 2
 and 3 bins per thread (F = 1025, 2049), the run-time path at Q = 5 and 16
-and with the window in device memory (F = 3073); Q = 32, which the
-previous K1 did not take, against the plain version only. Its launch plan
-(lws_sweeps_plan) is held to the Python mirror (ops.lws_sweeps.sweep_plan).
+and with the window in device memory (F = 3073), the table kernel at Q = 8
+(LWS(2048, 256)'s batch and no-future stencils at 2 bins per thread, F =
+513 at 1), Q = 8 at P = F (the run-time path); Q = 32, which the previous
+K1 did not take, against the plain version only. A previous K1 whose entry
+point takes the weight planes alone runs through k1_timing.legacy_k1. Its
+launch plan (lws_sweeps_plan) is held to the Python mirror
+(ops.lws_sweeps.sweep_plan).
 Agreement shows the kernel's indexing,
 barriers and host arguments compute what the plain version computes; only
 the card shows that nvcc builds it and that it is fast (chip_smoke.py).
@@ -51,6 +55,8 @@ from lws_torch.ops import _build  # noqa: E402
 from lws_torch.ops import lws_sweeps as sweeps_mod  # noqa: E402
 from lws_torch.ops import online as online_mod  # noqa: E402
 from lws_torch.ops import packed as packed_mod  # noqa: E402
+from k1_timing import bind_legacy as bind_legacy_k1  # noqa: E402
+from k1_timing import legacy_k1  # noqa: E402
 from online_timing import (bind_legacy, legacy_chunk, legacy_online,  # noqa: E402
                            legacy_weight_sets)
 from packed_timing import bind_legacy_packed, legacy_grouped  # noqa: E402
@@ -86,6 +92,11 @@ enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, K, int, size_t) {
+  *blocks = 1;  // no card to ask: the blocks run one after another
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -283,23 +294,14 @@ def old_sources(rev: str, out_dir: Path, name: str = "lws_sweeps") -> Path:
     return dest
 
 
-def bind_sweeps(lib):
-    """The argument types ops.lws_sweeps._library() sets, on a library it
-    does not build (the previous K1 has no lws_sweeps_plan)."""
-    lib.lws_sweeps_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
-        ctypes.c_void_p]
-    lib.lws_sweeps_launch.restype = ctypes.c_int
-    lib.lws_sweeps_error_string.argtypes = [ctypes.c_int]
-    lib.lws_sweeps_error_string.restype = ctypes.c_char_p
-    return lib
-
-
 # K1's cases: (label, LWS arguments, schedule, frames, halo / mean_amp,
 # compare with the previous K1). "batch": 3 dense sweeps of the batch
 # stencil; "dead": the same with the middle sweep's threshold above every
 # bin (skipped, so the next sweep reloads the window); "nofuture": one
 # sweep of the v=-1 stencil. F = 3073 takes the run-time path with the
-# window in device memory; Q = 32 is past the previous K1's cap.
+# window in device memory; Q = 32 is past the previous K1's cap. Q = 8 with
+# summarized weights (P = Q) takes the table kernel; use_simplifications=False
+# gives the same geometry per-bin weights (P = F), the run-time path.
 K1_CASES = (
     ("Q=4 ip3 jacobi F=257", dict(awin_or_fsize=512, fshift=128), "batch", 20, False, True),
     ("no-future v=-1 F=257", dict(awin_or_fsize=512, fshift=128), "nofuture", 20, False, True),
@@ -317,18 +319,25 @@ K1_CASES = (
     ("Q=4 no-future F=2049", dict(awin_or_fsize=4096, fshift=1024), "nofuture", 10, False, True),
     ("Q=2 color2x3 F=2049, 3 bins per thread", dict(awin_or_fsize=4096, fshift=2048), "dead",
      10, False, True),
-    ("Q=8 (run-time path) F=1025, 2 bins per thread", dict(awin_or_fsize=2048, fshift=256),
+    ("Q=8 (table kernel) F=1025, 2 bins per thread", dict(awin_or_fsize=2048, fshift=256),
      "batch", 10, False, True),
     ("Q=16 (run-time path) F=513", dict(awin_or_fsize=1024, fshift=64), "batch", 12, True, True),
     ("Q=4 F=3073, window in device memory", dict(awin_or_fsize=6144, fshift=1536), "batch", 8,
      False, True),
     ("Q=32 L=3 F=129", dict(awin_or_fsize=256, fshift=8, L=3), "batch", 20, False, False),
+    ("Q=8 no-future (table kernel) F=1025", dict(awin_or_fsize=2048, fshift=256), "nofuture",
+     10, False, True),
+    ("Q=8 P=F (run-time path) F=1025",
+     dict(awin_or_fsize=2048, fshift=256, use_simplifications=False), "batch", 10, False, True),
+    ("Q=8 (table kernel) F=513, 1 bin per thread, halo= mean_amp=",
+     dict(awin_or_fsize=1024, fshift=128), "batch", 12, True, True),
 )
 
 
 def sweeps_float64(lib, sr, si, st, thresholds, inner_passes, inner_scheme, halo, mean):
     """K1 built in double, launched on float64 tensors with the wrapper's
-    own padded state, schedule and launch arguments."""
+    own padded state, schedule and launch arguments (the weight table where
+    the plan picks the table kernel)."""
     B, T, F = sr.shape
     Q1 = st.Q - 1
     amp, thr, live = sweeps_mod.sweep_schedule(sr, si, thresholds, mean)
@@ -337,10 +346,17 @@ def sweeps_float64(lib, sr, si, st, thresholds, inner_passes, inner_scheme, halo
         edges = ((s[:, :1].expand(B, Q1, F), s[:, -1:].expand(B, Q1, F)) if halo is None
                  else (halo[top], halo[bot]))
         planes.append(torch.cat([edges[0], s, edges[1]], 1).contiguous())
-    lib.lws_sweeps_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [
+    lib.lws_sweeps_launch.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 + [
         ctypes.c_void_p]
-    ptrs = [t.data_ptr() for t in (*planes, amp, st.Wr, st.Wi, thr.contiguous(), live)]
-    sched = sweeps_mod._schedule_args(st, inner_passes, inner_scheme)
+    if sweeps_mod.stencil_plan(F, st).table:
+        wt = packed_mod.packed_weights(st)
+        weights = (None, None, wt.table.data_ptr(), wt.rows.data_ptr(), wt.dks.data_ptr())
+    else:
+        weights = (st.Wr.data_ptr(), st.Wi.data_ptr(), None, None, None)
+    ptrs = [*(t.data_ptr() for t in (*planes, amp)), *weights,
+            *(t.data_ptr() for t in (thr.contiguous(), live))]
+    sched = (*sweeps_mod._schedule_args(st, inner_passes, inner_scheme), int(st.nz.sum()),
+             st.period)
     err = lib.lws_sweeps_launch(*ptrs, B, T, F, st.Q, st.L, thresholds.shape[0], *sched, None)
     assert err == 0, err
     return planes[0][:, Q1:Q1 + T], planes[1][:, Q1:Q1 + T]
@@ -354,6 +370,7 @@ def k1_cases(old_lib, new_lib, lib64, rng):
     Returns (worst float32 vs plain, worst float64 vs plain, both / max amp,
     every compared case bit-equal)."""
     worst, worst64, equal = 0.0, 0.0, True
+    tables = sweeps_mod.TABLE_LAUNCHES
     dense = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-3:], dtype=torch.float32)
     dead = dense.clone()
     dead[1] = 1e9
@@ -373,17 +390,17 @@ def k1_cases(old_lib, new_lib, lib64, rng):
             halo = tuple(torch.tensor(rng.standard_normal((B, Q1, F)) * scale,
                                       dtype=torch.float32) for _ in range(4))
             mean = torch.tensor(rng.uniform(0.5, 2.0, B) * scale, dtype=torch.float32)
-        plan = sweeps_mod.sweep_plan(F, proc._Qi, proc.L)
+        plan = sweeps_mod.stencil_plan(F, sched[0])
         _build.load = {"lws_sweeps": new_lib}.__getitem__
         k = sweeps_mod._launch(sr, si, *sched, halo, mean)
         p = sweeps_mod.tiled_lws_sweeps(sr, si, *sched, halo, mean, backend="torch")
+        kind = "table" if plan.table else "fixed" if plan.fixed else "run-time"
         worst = max(worst, report(
             f"K1 {label} {stage} {tuple(sr.shape)} ({plan.bins} bins x {plan.threads} "
             f"threads, ring {plan.ring}, {plan.staged}/{plan.taps} taps staged, "
-            f"{'fixed' if plan.fixed else 'run-time'} kernel)", k, p, A))
+            f"{kind} kernel, {plan.bytes} B)", k, p, A))
         if compare:
-            _build.load = {"lws_sweeps": old_lib}.__getitem__
-            o = sweeps_mod._launch(sr, si, *sched, halo, mean)
+            o = legacy_k1(old_lib, sr, si, *sched, halo, mean)
             same = torch.equal(k[0], o[0]) and torch.equal(k[1], o[1])
             equal = equal and same
             print(f"  vs the previous K1: {'bit-equal' if same else 'DIFFER'}", flush=True)
@@ -395,6 +412,7 @@ def k1_cases(old_lib, new_lib, lib64, rng):
         k64 = sweeps_float64(lib64, *args64)
         p64 = sweeps_mod.tiled_lws_sweeps(*args64, backend="torch")
         worst64 = max(worst64, report("  float64 build vs plain float64", k64, p64, A))
+    print(f"K1 table kernel launches: {sweeps_mod.TABLE_LAUNCHES - tables}", flush=True)
     return worst, worst64, equal
 
 
@@ -403,14 +421,17 @@ def plan_matches(lib):
     geometries."""
     _build.load = {"lws_sweeps": lib}.__getitem__
     ok = True
-    for F in (6, 129, 257, 289, 513, 1025, 2049, 3073, 16385):
-        for Q, L in ((4, 5), (2, 5), (5, 5), (16, 5), (32, 3), (1, 0)):
+    for F in (6, 129, 257, 289, 513, 1025, 1525, 1526, 1533, 1534, 2049, 3073, 16385):
+        for Q, L in ((4, 5), (2, 5), (5, 5), (8, 5), (16, 5), (32, 3), (1, 0)):
             if F < L + 1:
                 continue
-            mirror, built = sweeps_mod.sweep_plan(F, Q, L), sweeps_mod.kernel_plan(F, Q, L)
-            if mirror != built:
-                ok = False
-                print(f"plan F={F} Q={Q} L={L}: kernel {built} != mirror {mirror}")
+            for period, taps in ((None, None), (Q, 148), (Q, None)):
+                mirror = sweeps_mod.sweep_plan(F, Q, L, period, taps)
+                built = sweeps_mod.kernel_plan(F, Q, L, period, taps)
+                if mirror != built:
+                    ok = False
+                    print(f"plan F={F} Q={Q} L={L} P={period} G={taps}: kernel {built} != "
+                          f"mirror {mirror}")
     print(f"K1 launch plan, kernel vs Python mirror: {'equal' if ok else 'DIFFER'}", flush=True)
     return ok
 
@@ -684,8 +705,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(args.build_dir or tmp)
         libs = {n: build_cpu(n, out) for n in ("lws_sweeps", "lws_online")}
-        old_k1 = bind_sweeps(build_cpu("lws_sweeps", out, csrc=old_sources(args.old_k1, out),
-                                       tag="_old"))
+        old_k1 = bind_legacy_k1(build_cpu("lws_sweeps", out,
+                                          csrc=old_sources(args.old_k1, out), tag="_old"))
         old_online = bind_legacy(build_cpu(
             "lws_online", out, csrc=old_sources(args.old_online, out, "lws_online"),
             tag="_old_online"))

@@ -118,6 +118,31 @@ def test_kernel_q32_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("simplified,table", [(True, 1), (False, 0)])
+def test_kernel_q8_table_matches_plain(cuda_device, simplified, table):
+    """LWS(2048, 256) (Q = 8, F = 1025: the vocoder's geometry), 3 dense
+    sweeps from random phases on (4, 223, 1025): the table kernel (weights
+    from the period-Q table), counted in TABLE_LAUNCHES. With per-bin
+    weights (use_simplifications=False, P = F) the run-time kernel runs and
+    TABLE_LAUNCHES stays as it was."""
+    own = lws_torch.LWS(2048, 256, use_simplifications=simplified, device=cuda_device)
+    parts = [_random_phase(own, 223, cuda_device, seed=s) for s in (4, 5)]
+    A = np.concatenate([p[0] for p in parts])
+    sr, si = (torch.cat([p[k] for p in parts]) for k in (1, 2))
+    assert tuple(sr.shape) == (4, 223, 1025)
+    thr = torch.tensor(lws_torch.get_thresholds(100, 100, 0.1, 1)[-3:], dtype=torch.float32,
+                       device=cuda_device)
+    st, ip = own._st_batch, own.batch_inner_passes
+    before = (sweeps_mod.LAUNCHES, sweeps_mod.TABLE_LAUNCHES)
+    kr, ki = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, own.inner_scheme)
+    assert (sweeps_mod.LAUNCHES, sweeps_mod.TABLE_LAUNCHES) == (before[0] + 1,
+                                                                before[1] + table)
+    pr, pi = sweeps_mod.tiled_lws_sweeps(sr, si, st, thr, ip, own.inner_scheme, backend="torch")
+    err = max(float((kr - pr).abs().max()), float((ki - pi).abs().max()))
+    assert err <= TOL * A.max(), err
+
+
+@pytest.mark.cuda
 def test_free_function_complex128_on_cuda(cuda_device):
     """numpy's default complex128 through the free batch_lws on CUDA: the
     float32 kernel, complex64 out; backend="torch" keeps float64

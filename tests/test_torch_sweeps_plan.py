@@ -23,29 +23,53 @@ torch.set_num_threads(1)
 
 
 # (F, Q, L) -> (bins per thread, threads, window ring in shared memory,
-# staged tap planes, fixed kernel, bytes). Rows are (re, im) pairs of
-# width = F + 2L floats; two ping-pong rows, then the 2Q-row ring where it
-# fits beside them, then as many whole rows of taps (2L + 1 planes of re,
-# im, F floats each: 8F bytes a plane) as the rest of 232,448 B holds,
-# centre row first.
-@pytest.mark.parametrize("F,Q,L,bins,threads,ring,staged,fixed,nbytes", [
+# staged tap planes, fixed kernel, bytes), then the stencil's period P and
+# live taps G (None: P = F, every tap live) and whether the table kernel
+# runs. Rows are (re, im) pairs of width = F + 2L floats; two ping-pong
+# rows, then the 2Q-row ring where it fits beside them, then as many whole
+# rows of taps (2L + 1 planes of re, im, F floats each: 8F bytes a plane)
+# as the rest of 232,448 B holds, centre row first; or, for the table
+# kernel, the G x P table of (re, im) pairs and the tap lists (3 ints per
+# row of taps, one per live tap).
+_PLAN_ROWS = [
     # batch path: 4 x 267 + 16 x 267 floats of rows, all 7 rows of taps
-    (257, 4, 5, 1, 288, True, 77, True, 21_360 + 77 * 2_056),
+    (257, 4, 5, 1, 288, True, 77, True, 21_360 + 77 * 2_056, None, None, False),
     # music batch stage: 4 of 7 rows (45,144 B each) fit beside 41,840 B
-    (513, 4, 5, 1, 544, True, 44, True, 41_840 + 44 * 4_104),
+    (513, 4, 5, 1, 544, True, 44, True, 41_840 + 44 * 4_104, None, None, False),
     # longform: 3 bins on 704 threads (not 1024, 1024, 1); no row of taps
     # (180,312 B) fits beside the 164,720 B of rows
-    (2049, 4, 5, 3, 704, True, 0, True, 164_720),
+    (2049, 4, 5, 3, 704, True, 0, True, 164_720, None, None, False),
     # LWS(256, 8, L=3): the run-time path, no Q cap (4 + 128 rows of 135),
     # 22 of 63 rows of taps
-    (129, 32, 3, 1, 160, True, 154, False, 71_280 + 154 * 1_032),
+    (129, 32, 3, 1, 160, True, 154, False, 71_280 + 154 * 1_032, None, None, False),
     # past the ring's fit: the window read from device memory
-    (3073, 4, 5, 4, 800, False, 0, False, 49_328),
-])
-def test_sweep_plan_table(F, Q, L, bins, threads, ring, staged, fixed, nbytes):
-    plan = sweeps_mod.sweep_plan(F, Q, L)
+    (3073, 4, 5, 4, 800, False, 0, False, 49_328, None, None, False),
+    # LWS(2048, 256)'s batch stencil (the vocoder): 4 + 32 rows of 1,035
+    # pairs, the 148 x 8 table and 45 + 148 ints of lists; no tap planes
+    (1025, 8, 5, 2, 544, True, 0, True, 149_040 + 9_472 + 772, 8, 148, True),
+    # the same geometry with per-bin weights (P = F): the run-time kernel,
+    # no row of taps (90,200 B) beside the rows
+    (1025, 8, 5, 2, 544, True, 0, False, 149_040, 1025, 148, False),
+    # LWS(4096, 512): the ring (263,552 B) does not fit; run-time, the window
+    # in device memory, 1 of 15 rows of taps (180,312 B each)
+    (2049, 8, 5, 3, 704, False, 11, False, 32_944 + 11 * 16_392, 8, 148, False),
+]
+
+
+def _plan_id(row):
+    """The row's values joined by '-' (pytest's own name for them), the
+    period, taps and table columns only where a period is given."""
+    return "-".join(map(str, row if row[9] is not None else row[:9]))
+
+
+@pytest.mark.parametrize("F,Q,L,bins,threads,ring,staged,fixed,nbytes,period,taps,table",
+                         _PLAN_ROWS, ids=[_plan_id(r) for r in _PLAN_ROWS])
+def test_sweep_plan_table(F, Q, L, bins, threads, ring, staged, fixed, nbytes, period, taps,
+                          table):
+    plan = sweeps_mod.sweep_plan(F, Q, L, period, taps)
     assert (plan.bins, plan.threads, plan.ring, plan.staged, plan.fixed, plan.bytes) == (
         bins, threads, ring, staged, fixed, nbytes)
+    assert plan.table == table
     assert plan.taps == (2 * Q - 1) * (2 * L + 1) and plan.fits
     assert plan.width == F + 2 * L and plan.threads * plan.bins >= F and plan.staged % (2 * L + 1) == 0
 
@@ -91,7 +115,7 @@ def test_k1_gate_takes_q32_and_rejects_tpu_knobs(monkeypatch):
     before = sweeps_mod.LAUNCHES
     out = sweeps_mod._launch(sr, si, st, thr, 1, "jacobi", None, None)
     assert sweeps_mod.LAUNCHES == before + 1 and len(calls) == 1
-    assert calls[0][7:13] == (2, 40, 129, 32, 3, 2)  # B, T, F, Q, L, iters
+    assert calls[0][10:16] == (2, 40, 129, 32, 3, 2)  # B, T, F, Q, L, iters
     # the stub leaves the state as built: the interior is the input
     assert torch.equal(out[0], sr) and torch.equal(out[1], si)
 
